@@ -39,6 +39,8 @@ def pytest_configure(config):
         "full suite exceeded 10 min; the default lane must stay <5 min). "
         "Run everything with --runslow, or only the slow lane with "
         "-m slow --runslow.")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips where there is none")
 
 
 def pytest_collection_modifyitems(config, items):

@@ -1,0 +1,73 @@
+"""The PyTorch port stands alone: no JAX, no scflow_tpu, no silent CPU.
+
+Every module of ``scflow_torch`` and ``chip_smoke`` must import in a
+process where ``jax``, ``flax``, ``optax`` and ``scflow_tpu`` cannot be
+imported, and every entry point must refuse ``device="cuda"`` when there
+is no GPU instead of falling back to the CPU."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "scflow_tpu")
+
+IMPORT_ALL = f"""
+import importlib, pkgutil, sys
+for name in {BLOCKED!r}:
+    sys.modules[name] = None        # any import of it now raises
+import scflow_torch
+names = [m.name for m in pkgutil.walk_packages(scflow_torch.__path__,
+                                               "scflow_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+print(len(names))
+"""
+
+
+def test_port_imports_without_jax():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    r = subprocess.run([sys.executable, "-c", IMPORT_ALL], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert int(r.stdout.strip()) >= 20      # every module was reached
+
+
+def _port_sources():
+    return sorted(p.relative_to(REPO).as_posix()
+                  for p in [*REPO.joinpath("scflow_torch").rglob("*.py"),
+                            REPO / "chip_smoke.py"])
+
+
+@pytest.mark.parametrize("path", _port_sources())
+def test_no_jax_import_in_source(path):
+    text = (REPO / path).read_text()
+    pattern = r"^\s*(import|from)\s+(%s)\b" % "|".join(BLOCKED)
+    assert not re.search(pattern, text, re.M), path
+
+
+def test_entry_points_refuse_missing_gpu(monkeypatch):
+    from scflow_torch.rendering import Renderer, make_test_meshes
+    from scflow_torch.training import (Config, ModelConfig, RenderConfig,
+                                       build_model, make_eval_step,
+                                       make_multi_pass_eval_step)
+
+    cfg = Config(model=ModelConfig(num_class=2),
+                 render=RenderConfig(image_size=(64, 64)))
+    model = build_model(cfg, device="cpu")
+    renderer = Renderer(make_test_meshes(2, subdivisions=1, device="cpu"),
+                        image_size=(64, 64))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: make_eval_step(model, renderer, cfg),
+                 lambda: make_eval_step(model, renderer, cfg, device="cuda"),
+                 lambda: make_multi_pass_eval_step(model, renderer, cfg),
+                 lambda: build_model(cfg),
+                 lambda: make_test_meshes(2, subdivisions=1)):
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            call()
+    assert next(model.parameters()).device.type == "cpu"
