@@ -1,18 +1,19 @@
-"""Tile-binned triangle rasterizer: torch pre/post around a CUDA tile kernel.
+"""Tile-binned triangle rasterizer: a torch pre-pass and one CUDA kernel.
 
 Port of ``scflow_tpu/ops/rasterize_fast.py``. A torch pre-pass builds each
-face's edge/depth coefficients (:func:`_coeff_table`) and picks, per
-32×32 pixel tile, the first ``K`` faces of the 8-face chunks whose
-bounding boxes overlap the tile (:func:`_select_tiles`). The tile pass
-(:func:`rasterize_tiles`) then runs, for every pixel and selected face,
-the edge functions, the inside test, the interpolated z and a packed
-(z | face id) key whose minimum is the z-test; the winner's z and
-attributes are written in image layout. A torch tail decodes the keys.
+face's edge/depth coefficients and bounding box (:func:`_coeff_table`) and
+its attribute rows. The tile pass (:func:`rasterize_tiles`) then picks,
+per 32×32 pixel tile, the first ``K`` faces of the 8-face chunks whose
+bounding boxes overlap the tile (:func:`_select_tiles`), runs for every
+pixel and selected face the edge functions, the inside test, the
+interpolated z and a packed (z | face id) key whose minimum is the z-test,
+and writes the winner's face id, z and attributes in image layout.
 
 On a CUDA tensor the tile pass is the hand-written kernel in
-``csrc/rasterize.cu``; on a CPU tensor it is
-:func:`rasterize_tiles_reference`, a literal translation of the TPU
-kernel's dense (pixels × faces) formulation.
+``csrc/rasterize.cu``, selection and decode included; on a CPU tensor it
+is :func:`rasterize_tiles_reference`: :func:`_select_tiles`, a literal
+translation of the TPU kernel's dense (pixels × faces) formulation, and
+the decode.
 """
 from __future__ import annotations
 
@@ -95,18 +96,49 @@ def _select_tiles(bbox, ok: torch.Tensor, height: int, width: int,
     return sel.reshape(n, ty * tx, k8 * CHUNK).to(torch.int32)
 
 
-def rasterize_tiles_reference(coeff: torch.Tensor, sel: torch.Tensor,
-                              attr: torch.Tensor, height: int, width: int,
-                              d_attr: int):
-    """Plain PyTorch tile pass: the TPU kernel's (P, K) formulation.
+def _check_inputs(coeff, bbox, attr, height, width, d_attr, k_faces):
+    """Raise unless the tile pass's inputs have the shapes, types and
+    layout that :func:`rasterize_tiles` takes."""
+    if coeff.dim() != 3:
+        raise ValueError(f"coeff must be (N, F, 16), got {tuple(coeff.shape)}")
+    n, f = coeff.shape[:2]
+    if height % TILE or width % TILE or height <= 0 or width <= 0:
+        raise ValueError(f"frame {height}x{width} is not a multiple of {TILE}")
+    if not 0 < k_faces <= K_FACES or k_faces % CHUNK:
+        raise ValueError(f"face budget {k_faces} not a multiple of {CHUNK} in "
+                         f"(0, {K_FACES}]")
+    if not 0 < f < (1 << ID_BITS) or f % CHUNK:
+        raise ValueError(f"{f} faces: not a multiple of {CHUNK} below "
+                         f"2^{ID_BITS} (the packed id)")
+    if not 0 < d_attr <= ATTR_PAD:
+        raise ValueError(f"d_attr {d_attr} outside (0, {ATTR_PAD}]")
+    for x, width_ in ((coeff, 16), (bbox, 4), (attr, 3 * ATTR_PAD)):
+        if (x.device != coeff.device or x.dtype != torch.float32
+                or tuple(x.shape) != (n, f, width_) or not x.is_contiguous()
+                or x.data_ptr() % 16):
+            raise ValueError(f"expected contiguous 16-byte aligned float32 "
+                             f"{(n, f, width_)} on {coeff.device}, got "
+                             f"{x.dtype} {tuple(x.shape)} on {x.device}")
 
-    coeff (N, F, 16) from :func:`_coeff_table`; sel (N, T, K) face ids (-1
-    for empty slots); attr (N, F, 3·16) vertex attributes premultiplied by
-    1/|area|, of which the first ``d_attr`` channels are read. Returns key
-    (N, H, W) int32, zbuf (N, H, W) f32 and attrs (N, H, W, d_attr) f32 —
-    the raw winner values, 0 where no face covers. Tiles go through in
+
+def rasterize_tiles_reference(coeff: torch.Tensor, bbox: torch.Tensor,
+                              attr: torch.Tensor, height: int, width: int,
+                              d_attr: int, k_faces: int = K_FACES):
+    """Plain PyTorch tile pass: :func:`_select_tiles`, the TPU kernel's
+    (P, K) formulation, then the decode.
+
+    coeff (N, F, 16) from :func:`_coeff_table`; bbox (N, F, 4) its
+    [xmin, xmax, ymin, ymax]; attr (N, F, 3·16) vertex attributes
+    premultiplied by 1/|area|, of which the first ``d_attr`` channels are
+    read. Returns face_id (N, H, W) int32 (-1 where no face covers), zbuf
+    (N, H, W) f32 and attrs (N, H, W, d_attr) f32 (0 where no face covers).
+    The winner's z and attributes are gathered from its slot and blended
+    as (w0·v0 + w1·v1) + w2·v2, the kernel's order. Tiles go through in
     chunks, so the dense (tiles, 1024, K) temporaries stay bounded.
     """
+    _check_inputs(coeff, bbox, attr, height, width, d_attr, k_faces)
+    sel = _select_tiles(bbox.unbind(-1), coeff[..., 14] > 0, height, width,
+                        k_faces)
     n, t, k = sel.shape
     p = TILE * TILE
     ty, tx = height // TILE, width // TILE
@@ -144,22 +176,27 @@ def rasterize_tiles_reference(coeff: torch.Tensor, sel: torch.Tensor,
         fid = row(13).to(torch.int32)
         kk = ((zkey >> ID_BITS) << ID_BITS) | fid
         kk = torch.where(inside, kk, BIG_KEY)
-        min_key = kk.amin(dim=-1, keepdim=True)                  # (B, P, 1)
-        key[sl] = min_key[..., 0]
-        winner = ((kk == min_key) & inside).to(torch.float32)
-        zbuf[sl] = (winner * zi).sum(dim=-1)
+        # keys are unique within a tile (the face id is in the low bits)
+        win = kk.argmin(dim=-1, keepdim=True)                    # (B, P, 1)
+        key[sl] = kk.gather(-1, win)[..., 0]
+        zbuf[sl] = zi.gather(-1, win)[..., 0]
+        ws = [w.gather(-1, win) for w in (w0, w1, w2)]           # (B, P, 1)
         a = torch.where(filled, attr[b_n, idx.clamp_min(0)], 0.0)
-        interp = (winner * w0) @ a[..., 0:ATTR_PAD]
-        interp += (winner * w1) @ a[..., ATTR_PAD:2 * ATTR_PAD]
-        interp += (winner * w2) @ a[..., 2 * ATTR_PAD:3 * ATTR_PAD]
-        attrs[sl] = interp[..., :d_attr]
+        a = a[torch.arange(a.shape[0], device=dev)[:, None], win[..., 0]]
+        attrs[sl] = (ws[0] * a[..., 0:d_attr]
+                     + ws[1] * a[..., ATTR_PAD:ATTR_PAD + d_attr]
+                     + ws[2] * a[..., 2 * ATTR_PAD:2 * ATTR_PAD + d_attr])
 
     def image(v):               # (N·T, P, ...) tile-major → (N, H, W, ...)
         rest = v.shape[2:]
         v = v.reshape(n, ty, tx, TILE, TILE, *rest).transpose(2, 3)
         return v.reshape(n, height, width, *rest)
 
-    return image(key), image(zbuf), image(attrs)
+    key, zbuf, attrs = image(key), image(zbuf), image(attrs)
+    bg = key >= BIG_KEY
+    return (torch.where(bg, -1, key & ((1 << ID_BITS) - 1)),
+            torch.where(bg, 0.0, zbuf),
+            torch.where(bg[..., None], 0.0, attrs))
 
 
 _ENTRY = None
@@ -174,47 +211,31 @@ def _kernel_entry():
     return _ENTRY
 
 
-def rasterize_tiles(coeff: torch.Tensor, sel: torch.Tensor,
-                    attr: torch.Tensor, height: int, width: int, d_attr: int):
+def rasterize_tiles(coeff: torch.Tensor, bbox: torch.Tensor,
+                    attr: torch.Tensor, height: int, width: int, d_attr: int,
+                    k_faces: int = K_FACES):
     """Tile pass: the CUDA kernel on CUDA tensors, the plain version
     (:func:`rasterize_tiles_reference`) on CPU tensors. Same contract."""
     if coeff.device.type == "cpu":
-        return rasterize_tiles_reference(coeff, sel, attr, height, width,
-                                         d_attr)
+        return rasterize_tiles_reference(coeff, bbox, attr, height, width,
+                                         d_attr, k_faces)
     if coeff.device.type != "cuda":
         raise ValueError(f"unsupported device {coeff.device}")
-    n, t, k = sel.shape
-    f = coeff.shape[1]
-    if height % TILE or width % TILE or t != (height // TILE) * (width // TILE):
-        raise ValueError(f"{height}x{width} frame does not match {t} tiles")
-    if not 0 < k <= K_FACES or k % CHUNK:
-        raise ValueError(f"face budget {k} not a multiple of {CHUNK} in "
-                         f"(0, {K_FACES}]")
-    if f >= (1 << ID_BITS):
-        raise ValueError(f"{f} faces exceed the {ID_BITS}-bit packed id")
-    if not 0 < d_attr <= ATTR_PAD:
-        raise ValueError(f"d_attr {d_attr} outside (0, {ATTR_PAD}]")
-    for x, dtype, shape in ((coeff, torch.float32, (n, f, 16)),
-                            (sel, torch.int32, (n, t, k)),
-                            (attr, torch.float32, (n, f, 3 * ATTR_PAD))):
-        if (x.device != coeff.device or x.dtype != dtype
-                or tuple(x.shape) != shape or not x.is_contiguous()):
-            raise ValueError(f"expected contiguous {dtype} {shape} on "
-                             f"{coeff.device}, got {x.dtype} "
-                             f"{tuple(x.shape)} on {x.device}")
+    _check_inputs(coeff, bbox, attr, height, width, d_attr, k_faces)
+    n, f = coeff.shape[:2]
     dev = coeff.device
-    key = torch.empty(n, height, width, dtype=torch.int32, device=dev)
+    face_id = torch.empty(n, height, width, dtype=torch.int32, device=dev)
     zbuf = torch.empty(n, height, width, dtype=torch.float32, device=dev)
     attrs = torch.empty(n, height, width, d_attr, dtype=torch.float32,
                         device=dev)
     err = _kernel_entry()(
-        coeff.data_ptr(), sel.data_ptr(), attr.data_ptr(),
-        key.data_ptr(), zbuf.data_ptr(), attrs.data_ptr(),
-        n, f, k, height, width, d_attr,
+        coeff.data_ptr(), bbox.data_ptr(), attr.data_ptr(),
+        face_id.data_ptr(), zbuf.data_ptr(), attrs.data_ptr(),
+        n, f, k_faces, height, width, d_attr,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "rasterize_tiles")
     rasterize_tiles.launches += 1
-    return key, zbuf, attrs
+    return face_id, zbuf, attrs
 
 
 rasterize_tiles.launches = 0
@@ -223,9 +244,10 @@ rasterize_tiles.launches = 0
 def tile_inputs(tri_xy: torch.Tensor, tri_z: torch.Tensor,
                 face_valid: torch.Tensor, height: int, width: int,
                 tri_attrs: torch.Tensor, k_faces: int = K_FACES):
-    """The tile pass's inputs for a batch of projected meshes: (coeff
-    (N, F', 16), sel (N, T, K) int32, attr rows (N, F', 48), d_attr), with the faces padded to F' = a multiple of 8 and
-    K = min(k_faces, F')."""
+    """The tile pass's inputs for a batch of projected meshes: coeff
+    (N, F', 16), bbox (N, F', 4), attr rows (N, F', 48), d_attr and the
+    face budget K = min(k_faces, F'), with the faces padded to F' = a
+    multiple of 8."""
     if height % TILE or width % TILE:
         raise ValueError(f"frame {height}x{width} is not a multiple of {TILE}")
     n, f0 = face_valid.shape
@@ -241,15 +263,15 @@ def tile_inputs(tri_xy: torch.Tensor, tri_z: torch.Tensor,
         raise ValueError("face budget exceeds the packed id bits")
     k_faces = min(k_faces, max(CHUNK, (fcount // CHUNK) * CHUNK))
 
-    coeff, bbox, ok = _coeff_table(tri_xy, tri_z, face_valid)
+    coeff, bbox, _ = _coeff_table(tri_xy, tri_z, face_valid)
     d_attr = tri_attrs.shape[-1]
     if not 0 < d_attr <= ATTR_PAD:
         raise ValueError(f"{d_attr} attribute channels outside (0, {ATTR_PAD}]")
     attr_p = tri_attrs * coeff[..., 12, None, None]              # premultiplied
     attr_p = torch.nn.functional.pad(attr_p, (0, ATTR_PAD - d_attr))
     attr_rows = attr_p.reshape(n, fcount, 3 * ATTR_PAD).contiguous()
-    sel = _select_tiles(bbox, ok, height, width, k_faces)
-    return coeff.contiguous(), sel, attr_rows, d_attr
+    return (coeff.contiguous(), torch.stack(bbox, dim=-1), attr_rows, d_attr,
+            k_faces)
 
 
 def rasterize_fast(tri_xy: torch.Tensor, tri_z: torch.Tensor,
@@ -263,11 +285,8 @@ def rasterize_fast(tri_xy: torch.Tensor, tri_z: torch.Tensor,
     weights. Returns dict(zbuf (N, H, W), face_id (N, H, W) int32, -1 for
     background, attrs (N, H, W, D)).
     """
-    coeff, sel, attr_rows, d_attr = tile_inputs(
+    coeff, bbox, attr, d_attr, k = tile_inputs(
         tri_xy, tri_z, face_valid, height, width, tri_attrs, k_faces)
-    key, zbuf, attrs = rasterize_tiles(coeff, sel, attr_rows, height, width,
-                                       d_attr)
-    bg = key >= BIG_KEY
-    return {"zbuf": torch.where(bg, 0.0, zbuf),
-            "face_id": torch.where(bg, -1, key & ((1 << ID_BITS) - 1)),
-            "attrs": torch.where(bg[..., None], 0.0, attrs)}
+    face_id, zbuf, attrs = rasterize_tiles(coeff, bbox, attr, height, width,
+                                           d_attr, k)
+    return {"zbuf": zbuf, "face_id": face_id, "attrs": attrs}

@@ -64,13 +64,19 @@ def test_instance_norm_kernel_refuses(dev):
                           bias[:1])
 
 
-def scene_inputs(dev, n=8, classes=5, subdivisions=3, size=256, seed=0):
+def scene_inputs(dev, n=8, classes=5, subdivisions=3, size=256, seed=0,
+                 k_faces=rf.K_FACES, shift=0.0, big_face=False, d_attr=9):
+    """The tile pass's arguments for a seeded scene of ``n`` objects;
+    ``shift`` moves them sideways (mm), ``big_face`` turns face 0 of every
+    sample into a triangle behind them that covers the whole frame, and
+    ``d_attr`` channels of the Phong attributes (repeated past 9) are
+    interpolated."""
     g = torch.Generator().manual_seed(seed)
     q = torch.nn.functional.normalize(torch.randn(n, 4, generator=g), dim=-1)
     from scflow_torch.geometry import quaternion_to_matrix
 
     rot = quaternion_to_matrix(q)
-    t = torch.cat([torch.rand(n, 2, generator=g) * 60 - 30,
+    t = torch.cat([torch.rand(n, 2, generator=g) * 60 - 30 + shift,
                    torch.rand(n, 1, generator=g) * 400 + 500], dim=-1)
     k = torch.tensor([[500.0, 0, size / 2], [0, 500.0, size / 2], [0, 0, 1]])
     labels = torch.randint(0, classes, (n,), generator=g)
@@ -79,39 +85,107 @@ def scene_inputs(dev, n=8, classes=5, subdivisions=3, size=256, seed=0):
                         image_size=(size, size))
     inp = renderer.rasterizer_inputs(rot.to(dev), t.to(dev),
                                      k.expand(n, 3, 3).to(dev), labels.to(dev))
-    return inp
+    tri_xy, tri_z, valid = inp["tri_xy"], inp["tri_z"], inp["face_valid"]
+    if big_face:
+        tri_xy, tri_z, valid = tri_xy.clone(), tri_z.clone(), valid.clone()
+        tri_xy[:, 0] = torch.tensor([[-2.0 * size, -2.0 * size],
+                                     [4.0 * size, -2.0 * size],
+                                     [-2.0 * size, 4.0 * size]])
+        tri_z[:, 0] = 2000.0
+        valid[:, 0] = True
+    tri_attrs = torch.cat([inp["tri_attrs"]] * 2, dim=-1)[..., :d_attr]
+    coeff, bbox, attr, d, k_faces = rf.tile_inputs(
+        tri_xy, tri_z, valid, size, size, tri_attrs, k_faces)
+    return coeff, bbox, attr, size, size, d, k_faces
 
 
-@pytest.mark.parametrize("subdivisions,k_faces", [(3, 256), (1, 256), (3, 64)])
-def test_rasterize_kernel(dev, subdivisions, k_faces):
-    inp = scene_inputs(dev, subdivisions=subdivisions)
-    coeff, sel, attr, d = rf.tile_inputs(
-        inp["tri_xy"], inp["tri_z"], inp["face_valid"], 256, 256,
-        inp["tri_attrs"], k_faces)
+def rasterize_both(args):
+    """The kernel's outputs, after checking it launched once, and the plain
+    version's."""
     before = rf.rasterize_tiles.launches
-    key, zbuf, attrs = rf.rasterize_tiles(coeff, sel, attr, 256, 256, d)
+    got = rf.rasterize_tiles(*args)
     torch.cuda.synchronize()
     assert rf.rasterize_tiles.launches == before + 1
-    key_r, zbuf_r, attrs_r = rf.rasterize_tiles_reference(coeff, sel, attr,
-                                                          256, 256, d)
-    # the same unfused f32 arithmetic in the same order: the keys agree
-    # (test bound 0.2% of pixels), z and attributes where they do
-    agree = (key == key_r)
-    assert (~agree).float().mean().item() <= 0.002
-    assert ((key_r < rf.BIG_KEY) & agree).any()
-    torch.testing.assert_close(zbuf[agree], zbuf_r[agree], rtol=2e-4, atol=0)
-    torch.testing.assert_close(attrs[agree], attrs_r[agree], rtol=0,
-                               atol=2e-4 * attrs_r.abs().max().item())
+    return got, rf.rasterize_tiles_reference(*args)
+
+
+def assert_bit_equal(got, want):
+    # the same unfused f32 arithmetic in the same order, the same selection
+    for name, a, b in zip(("face_id", "zbuf", "attrs"), got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), name
+
+
+@pytest.mark.parametrize("subdivisions,k_faces,n", [
+    (3, 256, 8), (1, 256, 8), (3, 64, 8), (4, 256, 8), (3, 256, 1),
+    (3, 256, 32)])
+def test_rasterize_kernel(dev, subdivisions, k_faces, n):
+    got, want = rasterize_both(scene_inputs(dev, n=n, subdivisions=subdivisions,
+                                            k_faces=k_faces))
+    assert (want[0] >= 0).any()
+    assert_bit_equal(got, want)
+
+
+# 9 (Phong) has its own instantiation; 3 (Gouraud, flat), 5 and 16 take
+# the generic one
+@pytest.mark.parametrize("d_attr", [3, 5, 16])
+def test_rasterize_kernel_attribute_widths(dev, d_attr):
+    got, want = rasterize_both(scene_inputs(dev, d_attr=d_attr))
+    assert want[2].shape[-1] == d_attr and (want[0] >= 0).any()
+    assert_bit_equal(got, want)
+
+
+@pytest.mark.parametrize("case", ["off_frame", "invalid"])
+def test_rasterize_kernel_all_background(dev, case):
+    args = scene_inputs(dev, shift=2000.0 if case == "off_frame" else 0.0)
+    if case == "invalid":                        # boxes overlap, no face is ok
+        coeff = args[0].clone()
+        coeff[..., 14] = 0.0
+        args = (coeff, *args[1:])
+    got, want = rasterize_both(args)
+    assert (want[0] == -1).all()
+    assert_bit_equal(got, want)
+
+
+def test_rasterize_kernel_frame_filling_face(dev):
+    got, want = rasterize_both(scene_inputs(dev, big_face=True))
+    assert (want[0] >= 0).all() and (want[0] > 0).any()
+    assert_bit_equal(got, want)
+
+
+def test_rasterize_fast_selects_in_kernel(dev, monkeypatch):
+    def no_torch_selection(*args, **kwargs):
+        raise AssertionError("torch selection on the CUDA path")
+
+    monkeypatch.setattr(rf, "_select_tiles", no_torch_selection)
+    renderer = Renderer(make_test_meshes(3, subdivisions=2, radius=60.0,
+                                         device=dev), image_size=(128, 128))
+    rot = torch.eye(3, device=dev).expand(2, 3, 3)
+    t = torch.tensor([[0.0, 0.0, 600.0], [10.0, -5.0, 700.0]], device=dev)
+    k = torch.tensor([[300.0, 0, 64], [0, 300.0, 64], [0, 0, 1]],
+                     device=dev).expand(2, 3, 3)
+    before = rf.rasterize_tiles.launches
+    out = renderer(rot, t, k, torch.tensor([0, 1], device=dev))
+    torch.cuda.synchronize()
+    assert rf.rasterize_tiles.launches == before + 1
+    assert out["mask"].any() and torch.isfinite(out["images"]).all()
 
 
 def test_rasterize_kernel_refuses(dev):
-    inp = scene_inputs(dev, n=1, subdivisions=1)
-    coeff, sel, attr, d = rf.tile_inputs(
-        inp["tri_xy"], inp["tri_z"], inp["face_valid"], 256, 256,
-        inp["tri_attrs"])
-    with pytest.raises(ValueError):
-        rf.rasterize_tiles(coeff.double(), sel, attr, 256, 256, d)
-    with pytest.raises(ValueError):
-        rf.rasterize_tiles(coeff, sel.long(), attr, 256, 256, d)
-    with pytest.raises(ValueError):
-        rf.rasterize_tiles(coeff, sel, attr, 224, 256, d)
+    coeff, bbox, attr, h, w, d, k = scene_inputs(dev, n=1, subdivisions=1)
+    misaligned = torch.empty(coeff.numel() + 1, device=dev)[1:].view(
+        coeff.shape).copy_(coeff)
+    for bad in ((coeff.double(), bbox, attr, h, w, d, k),
+                (coeff, bbox[..., :3].contiguous(), attr, h, w, d, k),
+                (coeff, bbox, attr.transpose(1, 2).contiguous().transpose(1, 2), h,
+                 w, d, k),
+                (coeff, bbox.cpu(), attr, h, w, d, k),
+                (misaligned, bbox, attr, h, w, d, k),
+                (coeff, bbox, attr, 250, w, d, k),
+                (coeff, bbox, attr, h, w, 17, k),
+                (coeff, bbox, attr, h, w, d, 12),
+                (coeff, bbox, attr, h, w, d, 264),
+                (coeff[:, :-4].contiguous(), bbox[:, :-4].contiguous(),
+                 attr[:, :-4].contiguous(), h, w, d, k)):
+        with pytest.raises(ValueError):
+            rf.rasterize_tiles(*bad)

@@ -111,11 +111,19 @@ def both(tri_xy, tri_z, fvalid, attrs, faces, k_faces=jrf.K_FACES):
             {k: v[0].numpy() for k, v in got.items()})
 
 
-@pytest.mark.parametrize("label,seed,k_faces", [
-    (0, 0, 256), (0, 1, 256), (0, 2, 64), (1, 5, 256)],
-    ids=["sphere0", "sphere1", "sphere-k64", "box"])
-def test_plain_tile_pass_matches_jax(label, seed, k_faces):
-    tri_xy, tri_z, fvalid, attrs, faces = scene(label, seed)
+@pytest.mark.parametrize("label,seed,k_faces,subdivisions,drop", [
+    (0, 0, 256, 2, 0), (0, 1, 256, 2, 0), (0, 2, 64, 2, 0), (1, 5, 256, 2, 0),
+    (0, 3, 256, 2, 3), (0, 4, 256, 4, 0), (0, 6, 64, 3, 0)],
+    ids=["sphere0", "sphere1", "sphere-k64", "box",
+         # 317 faces: the last chunk is padded
+         "faces-not-multiple-of-8",
+         # 5120 faces: the kernel's binning scans more than one block of chunks
+         "sphere-sub4",
+         # 1280 faces, 64 slots: the overlapping chunks are cut to 8
+         "sphere-sub3-k64"])
+def test_plain_tile_pass_matches_jax(label, seed, k_faces, subdivisions, drop):
+    tri_xy, tri_z, fvalid, attrs, faces = (
+        v[:len(v) - drop] for v in scene(label, seed, subdivisions))
     want, got = both(tri_xy, tri_z, fvalid, attrs, faces, k_faces=k_faces)
     fid_w, fid_g = want["face_id"], got["face_id"]
     assert (fid_w >= 0).any()
@@ -183,9 +191,9 @@ def test_renderer_matches_jax(shader, separate_lights):
     assert (want["mask"] != got["mask"]).mean() <= 0.002
     both_cover = want["mask"] & got["mask"]
     inp = tr.rasterizer_inputs(*args)
-    coeff, _, _, _ = trf.tile_inputs(inp["tri_xy"], inp["tri_z"],
-                                     inp["face_valid"], 64, 64,
-                                     inp["tri_attrs"])
+    coeff, _, _, _, _ = trf.tile_inputs(inp["tri_xy"], inp["tri_z"],
+                                        inp["face_valid"], 64, 64,
+                                        inp["tri_attrs"])
     face_id = trf.rasterize_fast(inp["tri_xy"], inp["tri_z"],
                                  inp["face_valid"], 64, 64,
                                  tri_attrs=inp["tri_attrs"])["face_id"]
