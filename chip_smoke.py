@@ -23,6 +23,18 @@ Phases (each prints one JSON line; any failed check raises):
   profile the main path's stages timed alone (one call each, host time
           included; the render's kernel time and launches under
           torch.profiler), and the step's kernels by device time.
+  paths   one full-res eval step and one 2-pass eval step.
+  k2_bwd  instance-norm backward kernel vs its plain version at the
+          encoders' three shapes at the train batch (16), f32 and bf16, on
+          input copies not in L2; times, and F.instance_norm's autograd
+          backward's.
+  train   the train step at batch 16, 21 classes, 256², 8 iterations,
+          full-res flow, f32, seeded weights, on one synthetic batch: 2
+          warm-up and 8 timed steps with launch counts (K1 1, K2 forward 30,
+          K2 backward 30 per step), finite metrics, moved parameters and BN
+          statistics, step time, peak memory and one profiled step's top
+          kernels; the loss and gradients of 2 samples against the port on
+          the CPU; one 2-cycle step.
 Then the ``kernels`` line, the card line from nvidia-smi and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA GPU.
 """
@@ -37,10 +49,12 @@ import sys
 import time
 
 BATCH = 32
+TRAIN_BATCH = 16          # the JAX DataConfig.batch_size default
 SIZE = (256, 256)
 NUM_CLASS = 21
 ITERS = 8
 WARMUP, STEPS = 2, 10
+TRAIN_WARMUP, TRAIN_STEPS = 2, 8
 KERNEL_REPS = 20
 # H100 SXM peaks (NVIDIA data sheet, dense): FP32 CUDA cores, HBM3
 PEAK_FP32 = 67e12
@@ -49,6 +63,10 @@ L2_BYTES = 50 * 2 ** 20   # H100 L2 cache
 K1_OPS_PER_PAIR = 22      # counted in csrc/rasterize.cu
 K1_COEFF_USED = 14        # coefficients a face's pass reads: edges, z, id, ok
 K2_OPS_PER_ELEM = 8       # sum, centred square, normalise, affine
+K2_BWD_OPS_PER_ELEM = 16  # statistics 4, the two sums 5, dx 7
+# the three IN shapes of a feature-encoder pass (channels, side), 5 each;
+# a step runs two passes, so 10 launches of each shape
+IN_SHAPES = ((64, 128), (96, 64), (128, 32))
 # tolerances of the CPU parity tests (tests/test_torch_port_*.py)
 POSE_TOL = dict(rot_atol=2e-3, trans_rtol=2e-3, trans_atol=2e-4)
 
@@ -238,8 +256,7 @@ def phase_k2() -> dict:
     totals = dict(ms=0.0, call_ms=0.0, plain_ms=0.0, library_ms=0.0,
                   bytes=0.0, ops=0.0)
     worst = 0.0
-    # (channels, side): the three IN shapes of a feature-encoder pass, 5 each
-    for c, side in ((64, 128), (96, 64), (128, 32)):
+    for c, side in IN_SHAPES:
         x32 = (torch.randn(BATCH, c, side, side, generator=g) * 2 + 0.5).cuda()
         scale = (1 + 0.3 * torch.randn(c, generator=g)).cuda()
         bias = (0.2 * torch.randn(c, generator=g)).cuda()
@@ -291,18 +308,21 @@ def phase_k2() -> dict:
 
 
 def reset_counts() -> None:
-    from scflow_torch.ops.fused_norm import instance_norm_fwd
+    from scflow_torch.ops.fused_norm import instance_norm_bwd, instance_norm_fwd
     from scflow_torch.ops.rasterize_fast import rasterize_tiles
 
     rasterize_tiles.launches = 0
     instance_norm_fwd.launches = 0
+    instance_norm_bwd.launches = 0
 
 
-def counts() -> tuple[int, int]:
-    from scflow_torch.ops.fused_norm import instance_norm_fwd
+def counts() -> tuple[int, int, int]:
+    """Launches of K1, the K2 forward and the K2 backward since the reset."""
+    from scflow_torch.ops.fused_norm import instance_norm_bwd, instance_norm_fwd
     from scflow_torch.ops.rasterize_fast import rasterize_tiles
 
-    return rasterize_tiles.launches, instance_norm_fwd.launches
+    return (rasterize_tiles.launches, instance_norm_fwd.launches,
+            instance_norm_bwd.launches)
 
 
 def run_path(name: str, step, batch, steps: int, renders: int) -> dict:
@@ -318,7 +338,8 @@ def run_path(name: str, step, batch, steps: int, renders: int) -> dict:
         out = step(batch)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    k1, k2 = counts()
+    k1, k2, k2b = counts()
+    check(k2b == 0, f"{name}: the K2 backward ran {k2b} times in inference")
     check(k1 == renders * steps, f"{name}: K1 launched {k1}, want "
           f"{renders * steps}")
     check(k2 == 30 * renders * steps, f"{name}: K2 launched {k2}, want "
@@ -402,6 +423,272 @@ def phase_profile(model, renderer, cfg, step, batch) -> None:
          top_kernels=[{"name": e.key[:90],
                        "ms_per_step": e.self_device_time_total / 1e3 / 2,
                        "calls_per_step": e.count / 2} for e in top])
+
+def phase_k2_bwd() -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from scflow_torch.ops.fused_norm import (instance_norm_bwd,
+                                             instance_norm_bwd_reference)
+
+    g = torch.Generator().manual_seed(2)
+    totals = dict(ms=0.0, call_ms=0.0, plain_ms=0.0, library_ms=0.0,
+                  bytes=0.0, ops=0.0)
+    worst = 0.0
+    for c, side in IN_SHAPES:
+        x32 = (torch.randn(TRAIN_BATCH, c, side, side, generator=g) * 2
+               + 0.5).cuda()
+        gy32 = torch.randn(TRAIN_BATCH, c, side, side, generator=g).cuda()
+        scale = (1 + 0.3 * torch.randn(c, generator=g)).cuda()
+        bias = (0.2 * torch.randn(c, generator=g)).cuda()
+        for dtype in (torch.float32, torch.bfloat16):
+            x, gy = x32.to(dtype), gy32.to(dtype)
+            dx, dscale, dbias = instance_norm_bwd(x, gy, scale)
+            want = instance_norm_bwd_reference(x, gy, scale)
+            torch.cuda.synchronize()
+            ref = want[0].float()
+            diff = (dx.float() - ref).abs()
+            err = diff.max().item()
+            if dtype == torch.float32:     # sums in another order
+                ok = bool((diff <= 1e-5 + 1e-5 * ref.abs()).all())
+            else:        # f32 arithmetic's spread, then one bf16 rounding step
+                ok = bool((diff <= 1e-5 + bf16_ulp(ref)).all())
+            check(ok, f"k2_bwd {dtype} {tuple(x.shape)}: dx max err {err}")
+            # dscale, dbias: 1e-5 of the sums of their terms' magnitudes
+            xf = x.float()
+            mu = xf.mean((2, 3), keepdim=True)
+            xhat = (xf - mu) * torch.rsqrt(
+                (xf - mu).square().mean((2, 3), keepdim=True) + 1e-5)
+            sum_err = 0.0
+            for got, ref_s, terms in ((dscale, want[1], gy.float() * xhat),
+                                      (dbias, want[2], gy.float())):
+                mag = terms.abs().sum((0, 2, 3))
+                d = (got - ref_s).abs()
+                check(bool((d <= 1e-5 * mag).all()),
+                      f"k2_bwd {dtype} {tuple(x.shape)}: dscale/dbias err "
+                      f"{d.max().item()}")
+                sum_err = max(sum_err, (d / mag).max().item())
+            copies = max(2, math.ceil(4 * L2_BYTES / (2 * x.numel()
+                                                      * x.element_size())))
+            pairs = itertools.cycle([(x, gy)] + [(x.clone(), gy.clone())
+                                                 for _ in range(copies - 1)])
+
+            def kernel():
+                a, b = next(pairs)
+                return instance_norm_bwd(a, b, scale)
+
+            def plain():
+                a, b = next(pairs)
+                return instance_norm_bwd_reference(a, b, scale)
+
+            ms = device_ms(kernel, KERNEL_REPS)
+            one = call_ms(kernel, KERNEL_REPS)
+            plain_ms = device_ms(plain, KERNEL_REPS)
+            lib = None
+            if dtype == torch.float32:
+                # F.instance_norm's autograd backward, one kept graph per copy
+                graphs = []
+                for _ in range(copies):
+                    a, b = next(pairs)
+                    leaves = [a.detach().requires_grad_(),
+                              scale.detach().requires_grad_(),
+                              bias.detach().requires_grad_()]
+                    y = F.instance_norm(leaves[0], weight=leaves[1],
+                                        bias=leaves[2], eps=1e-5)
+                    graphs.append((y, leaves, b))
+                lib_graphs = itertools.cycle(graphs)
+
+                def library():
+                    y, leaves, b = next(lib_graphs)
+                    return torch.autograd.grad(y, leaves, b, retain_graph=True)
+
+                lib = device_ms(library, KERNEL_REPS)
+                del graphs, lib_graphs
+            del pairs
+            moved = 3 * x.numel() * x.element_size() + 3 * c * 4
+            ops = x.numel() * K2_BWD_OPS_PER_ELEM
+            b_ms, b_by = bound_ms(moved, ops)
+            emit(phase="k2_bwd", shape=list(x.shape), dtype=str(dtype),
+                 max_abs_err=err, sums_max_rel_err=sum_err, ms=ms,
+                 call_ms=one, plain_ms=plain_ms, library_ms=lib,
+                 bound_ms=b_ms, bound_by=b_by)
+            if dtype == torch.float32:
+                worst = max(worst, err)
+                # 10 launches of this shape per train step
+                for key, v in (("ms", ms), ("call_ms", one),
+                               ("plain_ms", plain_ms), ("library_ms", lib),
+                               ("bytes", moved), ("ops", ops)):
+                    totals[key] += 10 * v
+    b_ms, b_by = bound_ms(totals["bytes"], totals["ops"])
+    return dict(name="instance_norm_bwd", route="cuda",
+                source="scflow_torch/ops/csrc/instance_norm.cu",
+                replaces="scflow_tpu/ops/fused_norm.py:148 (_bwd, plain XLA)",
+                max_abs_err=worst, ms=totals["ms"], call_ms=totals["call_ms"],
+                plain_ms=totals["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+                library_ms=totals["library_ms"])
+
+
+def flat_grads(model) -> "torch.Tensor":
+    import torch
+
+    return torch.cat([p.grad.detach().float().cpu().ravel()
+                      for p in model.parameters()])
+
+
+def train_parity(cfg, renderer, points, batch) -> dict:
+    """2 samples: one ``scflow_loss`` + backward on the card and on the
+    CPU from the same seed-0 weights and the same rendered inputs. Loss
+    terms within rtol 1e-4; the whole gradient within max(1e-3, 5 × the
+    CPU gradient's own spread under a 1e-6 relative change of the rendered
+    images) of the CPU's, as the CPU tests hold the port to JAX (train-mode
+    BN at batch 2 makes this f32 gradient ill-conditioned)."""
+    import torch
+
+    from scflow_torch.training import build_model, render_at_pose, scflow_loss
+
+    small = {k: v[:2] for k, v in batch.items()}
+    with torch.no_grad():
+        images, depth, mask = render_at_pose(
+            renderer, small["ref_rotations"], small["ref_translations"],
+            small["k"], small["labels"], cfg.data.normalize_mean,
+            cfg.data.normalize_std)
+    full = dict(small, rendered_images=images, rendered_depths=depth,
+                rendered_masks=mask)
+    runs = []
+    for dev, scale in (("cuda", 1.0), ("cpu", 1.0), ("cpu", 1.0 + 1e-6)):
+        model = build_model(cfg, device=dev, seed=0)
+        points_dev = points.to(dev)
+        inp = {k: v.to(dev) for k, v in full.items()}
+        inp["rendered_images"] = inp["rendered_images"] * scale
+        t0 = time.perf_counter()
+        loss, metrics, _ = scflow_loss(model, inp, points_dev, cfg, train=True)
+        loss.backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        runs.append(({k: v.detach().cpu() for k, v in metrics.items()},
+                     flat_grads(model), time.perf_counter() - t0))
+    (m_gpu, g_gpu, _), (m_cpu, g_cpu, cpu_s), (_, g_nudged, _) = runs
+    loss_err = {}
+    for key in ("loss", "loss_pose", "loss_flow", "loss_mask"):
+        rel = ((m_gpu[key] - m_cpu[key]).abs() / m_cpu[key].abs()).item()
+        loss_err[key] = rel
+        check(rel <= 1e-4, f"train parity: {key} rel err {rel}")
+    spread = ((g_nudged - g_cpu).norm() / g_cpu.norm()).item()
+    grad_err = ((g_gpu - g_cpu).norm() / g_cpu.norm()).item()
+    check(grad_err <= max(1e-3, 5 * spread),
+          f"train parity: gradient rel err {grad_err} (CPU spread {spread})")
+    return dict(samples=2, loss_rel_err=loss_err, loss_rtol=1e-4,
+                grad_rel_err=grad_err, cpu_grad_spread=spread,
+                grad_bound=max(1e-3, 5 * spread), cpu_seconds=cpu_s)
+
+
+def phase_train(bank) -> dict:
+    """Returns the train run's K2-backward launch count."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from scflow_torch.data import synthetic_batch
+    from scflow_torch.rendering import Renderer
+    from scflow_torch.training import (Config, DataConfig, ModelConfig,
+                                       RenderConfig, build_model,
+                                       build_points_bank,
+                                       make_multi_cycle_train_step,
+                                       make_optimizer, make_train_step)
+
+    cfg = Config(model=ModelConfig(num_class=NUM_CLASS, iters=ITERS,
+                                   test_iters=ITERS),
+                 render=RenderConfig(image_size=SIZE),
+                 data=DataConfig(batch_size=TRAIN_BATCH))
+    renderer = Renderer(bank, image_size=SIZE)
+    # the icospheres (even labels) are symmetric: the symmetric matching runs
+    points = build_points_bank(bank, symmetric_classes=range(0, NUM_CLASS, 2),
+                               num_points=cfg.loss.num_loss_points)
+    batch = synthetic_batch(torch.Generator().manual_seed(0), renderer,
+                            cfg.data.batch_size)
+    check(bool((batch["gt_masks"].sum((1, 2)) > 0).all()),
+          "train: an object is not visible")
+    model = build_model(cfg, device="cuda", seed=0)
+    opt = make_optimizer(cfg, model.parameters())
+    step = make_train_step(model, renderer, points, cfg, opt, device="cuda")
+    params0 = [p.detach().clone() for p in model.parameters()]
+    stats0 = [b.detach().clone() for n, b in model.named_buffers()
+              if n.endswith(("running_mean", "running_var"))]
+
+    for _ in range(TRAIN_WARMUP):
+        step(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times, losses = [], []
+    metrics = None
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        metrics = step(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(metrics["loss"].item())
+    k1, k2f, k2b = counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = (TRAIN_STEPS, 30 * TRAIN_STEPS, 30 * TRAIN_STEPS)
+    check((k1, k2f, k2b) == want,
+          f"train: launches K1/K2 fwd/K2 bwd {(k1, k2f, k2b)}, want {want}")
+    for key, v in metrics.items():
+        check(bool(torch.isfinite(v).all()), f"train: {key} not finite")
+    check(metrics["grad_norm"].item() > 0, "train: zero gradient")
+    moved = max((p.detach() - p0).abs().max().item()
+                for p, p0 in zip(model.parameters(), params0))
+    check(moved > 0, "train: the parameters did not move")
+    stats1 = [b for n, b in model.named_buffers()
+              if n.endswith(("running_mean", "running_var"))]
+    stats_moved = max((a - b).abs().max().item()
+                      for a, b in zip(stats1, stats0))
+    check(stats_moved > 0, "train: the BN running statistics did not move")
+
+    # one step's kernels by device time (outside the counted run)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(batch)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:12]
+
+    parity = train_parity(cfg, renderer, points, batch)
+
+    multi = make_multi_cycle_train_step(model, renderer, points, cfg, opt,
+                                        cycles=2, device="cuda")
+    reset_counts()
+    t0 = time.perf_counter()
+    mc = multi(batch)
+    torch.cuda.synchronize()
+    mc_s = time.perf_counter() - t0
+    mc_counts = counts()
+    check(mc_counts == (2, 60, 60),
+          f"train: 2-cycle launches K1/K2 fwd/K2 bwd {mc_counts}")
+    for key, v in mc.items():
+        check(bool(torch.isfinite(v).all()), f"train 2-cycle: {key} not finite")
+
+    step_ms = 1e3 * statistics.median(times)
+    emit(phase="train", batch=TRAIN_BATCH, image=list(SIZE), classes=NUM_CLASS,
+         iters=ITERS, lowres=False, dtype="float32", steps=TRAIN_STEPS,
+         step_ms_median=step_ms, step_ms_min=1e3 * min(times),
+         step_ms_max=1e3 * max(times), step_ms=[1e3 * t for t in times],
+         samples_per_s=TRAIN_BATCH / (step_ms / 1e3), peak_mem_gib=peak,
+         losses=losses, grad_norm=metrics["grad_norm"].item(),
+         param_max_change=moved, bn_stats_max_change=stats_moved,
+         launches_per_step={"rasterize_tiles": k1 // TRAIN_STEPS,
+                            "instance_norm_fwd": k2f // TRAIN_STEPS,
+                            "instance_norm_bwd": k2b // TRAIN_STEPS},
+         profiled_kernel_ms=busy,
+         top_kernels=[{"name": e.key[:90],
+                       "ms": e.self_device_time_total / 1e3,
+                       "calls": e.count} for e in top],
+         cpu_parity=parity,
+         two_cycle={"ms": 1e3 * mc_s, "launches": list(mc_counts),
+                    "cycle0_loss": mc["cycle0_loss"].item(),
+                    "cycle1_loss": mc["cycle1_loss"].item()})
+    return k2b
 
 
 def main() -> int:
@@ -491,6 +778,10 @@ def main() -> int:
          two_pass_ms=1e3 * two["times"][0],
          two_pass_launches=[two["k1"], two["k2"]],
          seconds_total=time.perf_counter() - t_start)
+
+    rows.append(phase_k2_bwd())
+    rows[2]["launches"] = phase_train(bank)
+    emit(phase="done", seconds_total=time.perf_counter() - t_start)
 
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -37,3 +37,30 @@ def ortho6d_to_matrix(ortho6d: torch.Tensor) -> torch.Tensor:
     z = normalize(torch.linalg.cross(x, ortho6d[..., 3:6], dim=-1))
     y = torch.linalg.cross(z, x, dim=-1)
     return torch.stack([x, y, z], dim=-1)
+
+
+def axis_angle_to_matrix(axis_angle: torch.Tensor) -> torch.Tensor:
+    """Rodrigues formula for (..., 3) axis-angle vectors → (..., 3, 3);
+    angle 0 gives the identity."""
+    angle = torch.linalg.vector_norm(axis_angle, dim=-1, keepdim=True)
+    axis = axis_angle / angle.clamp_min(_EPS)
+    x, y, z = axis.unbind(-1)
+    c = torch.cos(angle)[..., 0]
+    s = torch.sin(angle)[..., 0]
+    C = 1.0 - c
+    m = torch.stack([
+        x * x * C + c, x * y * C - z * s, x * z * C + y * s,
+        y * x * C + z * s, y * y * C + c, y * z * C - x * s,
+        z * x * C - y * s, z * y * C + x * s, z * z * C + c,
+    ], dim=-1).reshape(axis_angle.shape[:-1] + (3, 3))
+    eye = torch.eye(3, dtype=m.dtype, device=m.device).expand(m.shape)
+    return torch.where(angle[..., None] < _EPS, eye, m)
+
+
+def random_rotation(generator: torch.Generator,
+                    batch_shape: tuple = ()) -> torch.Tensor:
+    """Uniformly random rotation matrices (normalised Gaussian quaternions),
+    drawn on the generator's device."""
+    q = torch.randn(tuple(batch_shape) + (4,), generator=generator,
+                    device=generator.device)
+    return quaternion_to_matrix(normalize(q))

@@ -1,4 +1,5 @@
-"""Delta-pose composition (port of ``scflow_tpu/geometry/se3.py:19-66``)."""
+"""Delta-pose composition and rigid transforms (port of
+``scflow_tpu/geometry/se3.py:19-73``)."""
 from __future__ import annotations
 
 import torch
@@ -14,6 +15,13 @@ def matmul3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def matvec3(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """(..., 3, 3) @ (..., 3) as an elementwise f32 sum; broadcasts."""
     return (m * v[..., None, :]).sum(-1)
+
+
+def transform_points(rotation: torch.Tensor, translation: torch.Tensor,
+                     points: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) @ (..., P, 3) + (..., 3) → (..., P, 3)."""
+    return (matvec3(rotation[..., None, :, :], points)
+            + translation[..., None, :])
 
 
 def compose_delta_pose(rotation_delta: torch.Tensor,

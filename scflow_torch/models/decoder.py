@@ -6,7 +6,10 @@ tensors are NCHW; the outputs keep the JAX layout, (T, N, H, W, C) with
 the iteration axis first. ``lowres=True`` (the eval default) carries the
 pose-induced flow at feature resolution, computed from 4-tap "effective
 points", and rebuilds the full-resolution outputs of the last iteration
-only; ``lowres=False`` carries the flow at image resolution.
+only; ``lowres=False`` carries the flow at image resolution, as training
+runs it. Under autograd each iteration detaches the carried flow and mask
+and the source pose, and the depth update reaches x and y detached, as
+the JAX ``_SCFlowIteration`` does with all detach flags on.
 """
 from __future__ import annotations
 

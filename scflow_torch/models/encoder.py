@@ -8,7 +8,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import BasicBlock, conv2d, make_norm
+from .layers import BasicBlock, apply_norm, conv2d, make_norm
 
 # Basic arch: stem channels, then (channels, blocks, stride) per stage
 STEM_CHANNELS = 64
@@ -33,9 +33,14 @@ class RAFTEncoder(nn.Module):
         self.num_stages = len(STAGES)
         self.conv2 = conv2d(cin, out_channels, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(N, 3, H, W) images → (N, out_channels, H/8, W/8) features."""
-        x = F.relu(getattr(self, f"{self.abbr}1")(self.conv1(x)))
+    def forward(self, x: torch.Tensor,
+                sample_mask: torch.Tensor | None = None) -> torch.Tensor:
+        """(N, 3, H, W) images → (N, out_channels, H/8, W/8) features.
+        ``sample_mask`` (N,) keeps padded samples out of train-mode batch
+        statistics (BN only; IN is per sample)."""
+        x = F.relu(apply_norm(getattr(self, f"{self.abbr}1"), self.conv1(x),
+                              sample_mask))
         for i in range(self.num_stages):
-            x = getattr(self, f"res_layer{i + 1}")(x)
+            for block in getattr(self, f"res_layer{i + 1}"):
+                x = block(x, sample_mask)
         return self.conv2(x)

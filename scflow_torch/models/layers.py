@@ -29,16 +29,59 @@ class FusedInstanceNorm(nn.Module):
         return instance_norm(x, self.weight, self.bias, self.eps)
 
 
+class BatchNorm(nn.BatchNorm2d):
+    """Batch norm that trains as flax's ``nn.BatchNorm(momentum=0.9)``.
+
+    Eval mode is ``nn.BatchNorm2d``'s (running statistics). Train mode
+    normalises with the f32 batch mean and the biased variance
+    E[x²] − E[x]² (clamped at 0, flax's fast variance) over N, H, W, and
+    moves ``running_mean``/``running_var`` by ``momentum`` (0.1) toward
+    them, the biased variance included. An optional (N,) ``sample_mask``
+    (> 0.5 counts) keeps padded samples out of the statistics; they are
+    still normalised."""
+
+    def forward(self, x: torch.Tensor,
+                sample_mask: torch.Tensor | None = None) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        xf = x.float()
+        if sample_mask is None:
+            mean = xf.mean(dim=(0, 2, 3))
+            mean2 = xf.square().mean(dim=(0, 2, 3))
+        else:
+            m = (sample_mask > 0.5).to(xf.dtype)[:, None, None, None]
+            count = m.sum() * (x.shape[2] * x.shape[3])
+            mean = (xf * m).sum(dim=(0, 2, 3)) / count
+            mean2 = (xf.square() * m).sum(dim=(0, 2, 3)) / count
+        var = (mean2 - mean.square()).clamp_min(0.0)
+        with torch.no_grad():      # flax's order: 0.9·running + 0.1·batch
+            for buf, v in ((self.running_mean, mean), (self.running_var, var)):
+                buf.mul_(1.0 - self.momentum).add_(v * self.momentum)
+            self.num_batches_tracked.add_(1)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = ((xf - mean[:, None, None]) * mul[:, None, None]
+             + self.bias[:, None, None])
+        return y.to(x.dtype)
+
+
 def make_norm(kind: str, channels: int, gn_groups: int = 32) -> nn.Module:
     """'in' | 'bn' | 'gn' norm with torch-default eps (BN uses its running
-    statistics in eval mode)."""
+    statistics in eval mode, flax's batch statistics in train mode)."""
     if kind == "in":
         return FusedInstanceNorm(channels)
     if kind == "bn":
-        return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+        return BatchNorm(channels, eps=1e-5, momentum=0.1)
     if kind == "gn":
         return nn.GroupNorm(gn_groups, channels, eps=1e-5)
     raise ValueError(f"unknown norm {kind!r}")
+
+
+def apply_norm(norm: nn.Module, x: torch.Tensor,
+               sample_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Run ``norm``; only batch norm reads ``sample_mask``."""
+    if isinstance(norm, BatchNorm):
+        return norm(x, sample_mask)
+    return norm(x)
 
 
 def conv2d(cin: int, cout: int, kernel, stride: int = 1,
@@ -84,10 +127,16 @@ class BasicBlock(nn.Module):
             self.downsample = nn.Sequential(conv2d(cin, cout, 1, stride),
                                             make_norm(norm, cout))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.relu(getattr(self, f"{self.abbr}1")(self.conv1(x)))
-        out = getattr(self, f"{self.abbr}2")(self.conv2(out))
-        identity = x if self.downsample is None else self.downsample(x)
+    def forward(self, x: torch.Tensor,
+                sample_mask: torch.Tensor | None = None) -> torch.Tensor:
+        out = F.relu(apply_norm(getattr(self, f"{self.abbr}1"),
+                                self.conv1(x), sample_mask))
+        out = apply_norm(getattr(self, f"{self.abbr}2"), self.conv2(out),
+                         sample_mask)
+        identity = x
+        if self.downsample is not None:
+            conv, norm = self.downsample
+            identity = apply_norm(norm, conv(x), sample_mask)
         return F.relu(out + identity)
 
 

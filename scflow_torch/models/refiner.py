@@ -35,24 +35,31 @@ class SCFlowRefiner(nn.Module):
         return self.render_encoder
 
     def extract_feat(self, render_images: torch.Tensor,
-                     real_images: torch.Tensor):
-        """(render feat, real feat, GRU h, context) from NCHW images."""
+                     real_images: torch.Tensor,
+                     sample_valid: torch.Tensor | None = None):
+        """(render feat, real feat, GRU h, context) from NCHW images.
+        ``sample_valid`` (N,) keeps padded samples out of the context
+        encoder's train-mode BN statistics (train mode is ``self.training``,
+        flax's ``train=True``)."""
         feat_render = self.render_encoder(render_images)
         feat_real = self.real_encoder(real_images)
-        cxt = self.context(render_images)
+        cxt = self.context(render_images, sample_valid)
         h_feat, cxt_feat = torch.split(
             cxt, [self.h_channels, cxt.shape[1] - self.h_channels], dim=1)
         return feat_render, feat_real, torch.tanh(h_feat), torch.relu(cxt_feat)
 
     def forward(self, render_images, real_images, ref_rotation,
                 ref_translation, depth, k, label, iters: int | None = None,
-                lowres: bool = False) -> SCFlowOutputs:
+                lowres: bool = False,
+                sample_valid: torch.Tensor | None = None) -> SCFlowOutputs:
         """render/real images (N, H, W, 3) normalised, ref pose (N, 3, 3) /
-        (N, 3), depth (N, H, W), k (N, 3, 3), label (N,). Returns the
-        decoder's (T, N, ...) sequences in the JAX layout."""
+        (N, 3), depth (N, H, W), k (N, 3, 3), label (N,), optional
+        sample_valid (N,). Returns the decoder's (T, N, ...) sequences in
+        the JAX layout."""
         def nchw(x):
             return x.permute(0, 3, 1, 2).contiguous()
 
-        feats = self.extract_feat(nchw(render_images), nchw(real_images))
+        feats = self.extract_feat(nchw(render_images), nchw(real_images),
+                                  sample_valid)
         return self.decoder(*feats, ref_rotation, ref_translation, depth, k,
                             label, iters=iters, lowres=lowres)

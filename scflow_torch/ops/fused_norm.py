@@ -1,13 +1,14 @@
-"""Instance norm: a CUDA forward kernel and its plain PyTorch version.
+"""Instance norm: CUDA forward and backward kernels and their plain PyTorch
+versions, joined by a ``torch.autograd.Function``.
 
 Port of ``scflow_tpu/ops/fused_norm.py``. Per (sample, channel) of an
 NCHW activation: f32 mean and biased variance over H·W, then
-``(x − μ)·rsqrt(var + eps)·scale + bias`` cast back to the type of x. On
-CUDA tensors :func:`instance_norm` launches ``csrc/instance_norm.cu``
-(one read and one write of x); on CPU tensors it runs
-:func:`instance_norm_reference`, the formula of the JAX package's
-``_reference_in``. This slice is inference only: the backward kernel comes
-with training.
+``(x − μ)·rsqrt(var + eps)·scale + bias`` cast back to the type of x. The
+backward is the JAX package's ``_bwd`` formula. :func:`instance_norm`
+launches ``csrc/instance_norm.cu`` on CUDA tensors (the forward kernel,
+and the backward kernel when a gradient is asked for) and runs
+:func:`instance_norm_reference` / :func:`instance_norm_bwd_reference` on
+CPU tensors.
 """
 from __future__ import annotations
 
@@ -22,56 +23,93 @@ MAX_PLANE = 56 * 1024
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _stats_dtype(x: torch.Tensor) -> torch.dtype:
+    """f32 statistics, or wider where x is wider (float64 gradchecks)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 def instance_norm_reference(x: torch.Tensor, scale: torch.Tensor,
                             bias: torch.Tensor,
                             eps: float = 1e-5) -> torch.Tensor:
     """Plain PyTorch instance norm of NCHW ``x`` with f32 statistics."""
-    xf = x.float()
+    xf = x.to(_stats_dtype(x))
     mu = xf.mean(dim=(2, 3), keepdim=True)
     var = (xf - mu).square().mean(dim=(2, 3), keepdim=True)
     y = (xf - mu) * torch.rsqrt(var + eps)
-    y = y * scale.float()[:, None, None] + bias.float()[:, None, None]
+    y = (y * scale.to(xf.dtype)[:, None, None]
+         + bias.to(xf.dtype)[:, None, None])
     return y.to(x.dtype)
 
 
-_ENTRY = None
+def instance_norm_bwd_reference(x: torch.Tensor, g: torch.Tensor,
+                                scale: torch.Tensor, eps: float = 1e-5):
+    """Plain PyTorch backward of :func:`instance_norm_reference` for the
+    output gradient ``g``: (dx in the type of x, dscale, dbias in the type
+    of scale), the formula of the JAX package's ``_bwd``."""
+    xf = x.to(_stats_dtype(x))
+    gf = g.to(xf.dtype)
+    mu = xf.mean(dim=(2, 3), keepdim=True)
+    var = (xf - mu).square().mean(dim=(2, 3), keepdim=True)
+    inv = torch.rsqrt(var + eps)
+    xhat = (xf - mu) * inv
+    dscale = (gf * xhat).sum(dim=(0, 2, 3))
+    dbias = gf.sum(dim=(0, 2, 3))
+    gs = gf * scale.to(xf.dtype)[:, None, None]
+    m1 = gs.mean(dim=(2, 3), keepdim=True)
+    m2 = (gs * xhat).mean(dim=(2, 3), keepdim=True)
+    dx = inv * (gs - m1 - xhat * m2)
+    return dx.to(x.dtype), dscale.to(scale.dtype), dbias.to(scale.dtype)
 
 
-def _kernel_entry():
-    global _ENTRY
-    if _ENTRY is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        _ENTRY = _build.entry("scflow_instance_norm_fwd",
-                              [p, p, p, p, i, i, i, ctypes.c_float, i, p])
-    return _ENTRY
+_ENTRIES: dict = {}
 
 
-def instance_norm_fwd(x: torch.Tensor, scale: torch.Tensor,
-                      bias: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """Launch the CUDA kernel on contiguous NCHW ``x`` (f32 or bf16) with
-    (C,) f32 ``scale``/``bias``; raise on anything it does not take."""
-    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad
-                                    or bias.requires_grad):
-        raise NotImplementedError("IN backward comes with the training slice")
+def _kernel_entry(name: str, argtypes: list):
+    if name not in _ENTRIES:
+        _ENTRIES[name] = _build.entry(name, argtypes)
+    return _ENTRIES[name]
+
+
+def _check_plane(x: torch.Tensor, what: str) -> None:
     if x.device.type != "cuda":
-        raise ValueError(f"instance_norm_fwd needs a CUDA tensor, got {x.device}")
+        raise ValueError(f"{what} needs a CUDA tensor, got {x.device}")
     if x.dim() != 4 or x.dtype not in _DTYPES or not x.is_contiguous():
         raise ValueError(f"expected contiguous 4-D f32/bf16 NCHW input, got "
                          f"{x.dtype} {tuple(x.shape)}")
-    n, c, h, w = x.shape
-    hw = h * w
+    hw = x.shape[2] * x.shape[3]
     if hw % 8 or hw > MAX_PLANE or x.data_ptr() % 16:
-        raise ValueError(f"plane {h}x{w} not a 16-byte-aligned multiple of 8 "
-                         f"elements of at most {MAX_PLANE}")
-    for v in (scale, bias):
+        raise ValueError(f"plane {x.shape[2]}x{x.shape[3]} not a 16-byte-"
+                         f"aligned multiple of 8 elements of at most "
+                         f"{MAX_PLANE}")
+
+
+def _check_channel_vectors(x: torch.Tensor, *vs: torch.Tensor) -> None:
+    c = x.shape[1]
+    for v in vs:
         if (v.device != x.device or v.dtype != torch.float32
                 or tuple(v.shape) != (c,) or not v.is_contiguous()):
             raise ValueError(f"scale/bias must be contiguous f32 ({c},) on "
                              f"{x.device}, got {v.dtype} {tuple(v.shape)}")
+
+
+def instance_norm_fwd(x: torch.Tensor, scale: torch.Tensor,
+                      bias: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Launch the forward kernel on contiguous NCHW ``x`` (f32 or bf16) with
+    (C,) f32 ``scale``/``bias``; raise on anything it does not take. It
+    records no autograd graph: gradients go through :func:`instance_norm`."""
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad
+                                    or bias.requires_grad):
+        raise RuntimeError("instance_norm_fwd records no graph; call "
+                           "instance_norm for gradients")
+    _check_plane(x, "instance_norm_fwd")
+    _check_channel_vectors(x, scale, bias)
+    n, c, h, w = x.shape
     y = torch.empty_like(x)
-    err = _kernel_entry()(
+    p, i = ctypes.c_void_p, ctypes.c_int
+    err = _kernel_entry("scflow_instance_norm_fwd",
+                        [p, p, p, p, i, i, i, ctypes.c_float, i, p])(
         x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
-        n * c, c, hw, eps, _DTYPES[x.dtype],
+        n * c, c, h * w, eps, _DTYPES[x.dtype],
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "instance_norm_fwd")
     instance_norm_fwd.launches += 1
@@ -81,10 +119,65 @@ def instance_norm_fwd(x: torch.Tensor, scale: torch.Tensor,
 instance_norm_fwd.launches = 0
 
 
+def instance_norm_bwd(x: torch.Tensor, g: torch.Tensor, scale: torch.Tensor,
+                      eps: float = 1e-5):
+    """Launch the backward kernel: (dx, dscale, dbias) for the forward's
+    input ``x`` and output gradient ``g`` (contiguous NCHW, both f32 or both
+    bf16) and (C,) f32 ``scale``; raise on anything it does not take."""
+    _check_plane(x, "instance_norm_bwd")
+    _check_plane(g, "instance_norm_bwd")
+    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
+        raise ValueError(f"g {g.dtype} {tuple(g.shape)} must match x "
+                         f"{x.dtype} {tuple(x.shape)}")
+    _check_channel_vectors(x, scale)
+    n, c, h, w = x.shape
+    dx = torch.empty_like(x)
+    part = torch.empty(2, n * c, device=x.device, dtype=torch.float32)
+    dscale = torch.empty(c, device=x.device, dtype=torch.float32)
+    dbias = torch.empty_like(dscale)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    err = _kernel_entry("scflow_instance_norm_bwd",
+                        [p, p, p, p, p, p, p, i, i, i, ctypes.c_float, i, p])(
+        x.data_ptr(), g.data_ptr(), scale.data_ptr(), dx.data_ptr(),
+        part.data_ptr(), dscale.data_ptr(), dbias.data_ptr(), n * c, c,
+        h * w, eps, _DTYPES[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "instance_norm_bwd")
+    instance_norm_bwd.launches += 1
+    return dx, dscale, dbias
+
+
+instance_norm_bwd.launches = 0
+
+
+class _InstanceNorm(torch.autograd.Function):
+    """Saves (x, scale) as the JAX ``_fwd`` does; the kernels on CUDA
+    tensors, the plain versions on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        if x.device.type == "cpu":
+            return instance_norm_reference(x, scale, bias, eps)
+        return instance_norm_fwd(x, scale, bias, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        if x.device.type == "cpu":
+            dx, dscale, dbias = instance_norm_bwd_reference(x, g, scale,
+                                                            ctx.eps)
+        else:
+            g = g.contiguous()
+            if g.data_ptr() % 16:
+                g = g.clone()
+            dx, dscale, dbias = instance_norm_bwd(x, g, scale, ctx.eps)
+        return dx, dscale, dbias, None
+
+
 def instance_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                   eps: float = 1e-5) -> torch.Tensor:
-    """Instance norm of NCHW ``x``: the kernel on CUDA, the plain version
-    on the CPU."""
-    if x.device.type == "cpu":
-        return instance_norm_reference(x, scale, bias, eps)
-    return instance_norm_fwd(x, scale, bias, eps)
+    """Instance norm of NCHW ``x`` with a gradient for x, scale and bias:
+    the kernels on CUDA, the plain versions on the CPU."""
+    return _InstanceNorm.apply(x, scale, bias, eps)

@@ -1,11 +1,21 @@
-"""Inference step: normalise → render → refine → last-iteration pose (port
-of the SCFlow eval path of ``scflow_tpu/training/steps.py``).
+"""Train and eval steps (port of the SCFlow paths of
+``scflow_tpu/training/steps.py``).
 
+Eval: normalise → render → refine → last-iteration pose.
 ``make_eval_step`` and ``make_multi_pass_eval_step`` return plain functions
 of one batch dict that run under ``torch.inference_mode()`` on the device
-they were built for. Batches may hold numpy arrays or tensors, in the JAX
-layout: real_images (N, H, W, 3) uint8 or normalised float, ref_rotations
-(N, 3, 3), ref_translations (N, 3), k (N, 3, 3), labels (N,).
+they were built for.
+
+Train: render at the reference pose → ``scflow_loss`` → backward → the
+optax recipe's global-norm clip and AdamW with the linear OneCycle
+schedule. ``make_train_step`` and ``make_multi_cycle_train_step`` update
+the model and the optimizer in place and return the step's metrics.
+
+Batches may hold numpy arrays or tensors, in the JAX layout: real_images
+(N, H, W, 3) uint8 or normalised float, ref_rotations (N, 3, 3),
+ref_translations (N, 3), k (N, 3, 3), labels (N,); training adds
+gt_rotations, gt_translations, gt_masks (N, H, W) and optionally
+sample_valid (N,).
 """
 from __future__ import annotations
 
@@ -17,11 +27,14 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..geometry.flow import filter_flow_by_mask, flow_from_pose_and_depth
+from ..losses import sequence_flow_loss, sequence_mask_loss, sequence_pose_loss
 from ..models.heads import identity_rotation_bias
 from ..models.layers import FusedInstanceNorm
 from ..models.refiner import SCFlowRefiner
 from ..rendering.renderer import Renderer
-from .config import Config
+from .config import Config, OptimConfig
+from .points_bank import PointsBank
 
 # seeded init: the pose head's output layers start 100× smaller than the
 # rest (the JAX init zeroes them, which would leave the pose unmoved)
@@ -157,3 +170,196 @@ def make_multi_pass_eval_step(model: SCFlowRefiner, renderer: Renderer,
         return out
 
     return multi_pass_step
+
+
+def onecycle_lr(step: int, optim: OptimConfig) -> float:
+    """The learning rate of update ``step`` (from 0) under
+    ``optax.linear_onecycle_schedule(transition_steps=max(total_steps,
+    100), peak_value=lr, pct_start, pct_final=1 − pct_start, div_factor,
+    final_div_factor)``: three linear pieces, lr/div → lr over
+    [0, pct_start·T), lr → lr/div until pct_final·T, then → lr/div/final
+    at T, and that value after."""
+    total = max(optim.total_steps, 100)
+    bounds = (0, int(optim.pct_start * total),
+              int((1.0 - optim.pct_start) * total), total)
+    values = [optim.lr / optim.div_factor]
+    for scale in (optim.div_factor, 1.0 / optim.div_factor,
+                  1.0 / optim.final_div_factor):
+        values.append(values[-1] * scale)
+    for b0, b1, v0, v1 in zip(bounds, bounds[1:], values, values[1:]):
+        if b0 <= step < b1:
+            return (v1 - v0) * ((step - b0) / (b1 - b0)) + v0
+    return values[-1]
+
+
+def make_optimizer(cfg: Config, params) -> torch.optim.AdamW:
+    """AdamW over ``params`` with the recipe's betas, eps and weight decay
+    (one group: biases and norm scales decay too, as in optax's ``adamw``).
+    The train steps clip the gradients and set each update's learning rate
+    from :func:`onecycle_lr` before ``step()``."""
+    o = cfg.optim
+    return torch.optim.AdamW(params, lr=onecycle_lr(0, o), betas=o.betas,
+                             eps=o.eps, weight_decay=o.weight_decay)
+
+
+def clip_by_global_norm_(grads: list[torch.Tensor],
+                         max_norm: float) -> torch.Tensor:
+    """optax's ``clip_by_global_norm`` in place: where the global norm is
+    not below ``max_norm``, g ← (g / ‖g‖)·max_norm, in that order (without
+    a host sync). Returns the norm before the clip."""
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    keep = norm < max_norm
+    one = torch.ones_like(norm)
+    torch._foreach_div_(grads, torch.where(keep, one, norm))
+    torch._foreach_mul_(grads, torch.where(keep, one,
+                                           torch.full_like(norm, max_norm)))
+    return norm
+
+
+def _updates_done(optimizer: torch.optim.Optimizer) -> int:
+    """Updates the optimizer has applied (AdamW's per-parameter step count,
+    a CPU tensor: reading it does not wait for the device)."""
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            state = optimizer.state.get(p)
+            if state:
+                return int(state["step"])
+    return 0
+
+
+def scflow_loss(model: SCFlowRefiner, batch: dict, points_bank: PointsBank,
+                cfg: Config, train: bool = True):
+    """Full SCFlow training loss: (loss, metrics, outputs).
+
+    ``batch`` is a train batch on the model's device plus rendered_images,
+    rendered_depths and rendered_masks at the reference pose. ``train``
+    sets the model's mode: in train mode the context encoder's BN uses
+    batch statistics (excluding samples whose ``sample_valid`` is 0) and
+    updates its running statistics in place. GT flow comes from the
+    reference and GT poses and the rendered depth, filtered by the GT mask;
+    the occlusion target is the raw channel sum of the GT flow below
+    ``max_flow``, as the reference computes it."""
+    max_flow = cfg.model.max_flow
+    real = device_normalize_images(batch["real_images"], cfg)
+    gt_masks = batch.get("gt_masks")
+    if gt_masks is not None and gt_masks.dtype == torch.uint8:
+        gt_masks = gt_masks.float()
+    sample_valid = batch.get("sample_valid")
+    labels = batch["labels"].long()
+    model.train(train)
+    outputs = model(batch["rendered_images"], real, batch["ref_rotations"],
+                    batch["ref_translations"], batch["rendered_depths"],
+                    batch["k"], labels, iters=cfg.model.iters,
+                    sample_valid=sample_valid)
+
+    gt_flow = flow_from_pose_and_depth(
+        batch["ref_rotations"], batch["ref_translations"],
+        batch["gt_rotations"], batch["gt_translations"],
+        batch["rendered_depths"], batch["k"], invalid_num=max_flow)
+    if cfg.model.filter_invalid_flow and gt_masks is not None:
+        gt_flow = filter_flow_by_mask(gt_flow, gt_masks, invalid_num=max_flow)
+
+    lc = cfg.loss
+    points, point_valid, symmetric, diameters = points_bank.gather(labels)
+    loss_pose, seq_pose = sequence_pose_loss(
+        outputs.rotations, outputs.translations, batch["gt_rotations"],
+        batch["gt_translations"], points, point_valid, symmetric, diameters,
+        gamma=lc.gamma, loss_weight=lc.pose_weight,
+        loss_type=lc.pose_loss_type, disentangled=lc.pose_disentangled,
+        disentangle_z=lc.pose_disentangle_z, sample_weight=sample_valid)
+    loss_flow, seq_flow = sequence_flow_loss(
+        outputs.flow_from_pred, gt_flow, batch["rendered_masks"],
+        gamma=lc.gamma, loss_weight=lc.flow_weight, max_flow=max_flow,
+        sample_weight=sample_valid)
+    gt_occ = (gt_flow.sum(-1) < max_flow).float()
+    loss_mask, seq_mask = sequence_mask_loss(
+        outputs.masks[..., 0], gt_occ, gamma=lc.gamma,
+        loss_weight=lc.mask_weight, sample_weight=sample_valid)
+
+    loss = loss_pose + loss_flow + loss_mask
+    metrics = {"loss": loss, "loss_pose": loss_pose, "loss_flow": loss_flow,
+               "loss_mask": loss_mask, "seq_pose_loss": seq_pose,
+               "seq_flow_loss": seq_flow, "seq_mask_loss": seq_mask}
+    return loss, metrics, outputs
+
+
+def _train_cycle(model, renderer, points_bank, cfg, optimizer, batch):
+    """Render at the batch's reference pose, take the loss, its gradient
+    and one clipped AdamW update: (metrics incl. grad_norm, outputs)."""
+    with torch.no_grad():
+        rendered, depth, mask = render_at_pose(
+            renderer, batch["ref_rotations"], batch["ref_translations"],
+            batch["k"], batch["labels"].long(), cfg.data.normalize_mean,
+            cfg.data.normalize_std)
+    full = dict(batch, rendered_images=rendered, rendered_depths=depth,
+                rendered_masks=mask)
+    loss, metrics, outputs = scflow_loss(model, full, points_bank, cfg,
+                                         train=True)
+    optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    grads = [p.grad for g in optimizer.param_groups for p in g["params"]
+             if p.grad is not None]
+    metrics["grad_norm"] = clip_by_global_norm_(grads,
+                                                cfg.optim.grad_clip_norm)
+    lr = onecycle_lr(_updates_done(optimizer), cfg.optim)
+    for group in optimizer.param_groups:
+        group["lr"] = lr
+    optimizer.step()
+    return {k: v.detach() for k, v in metrics.items()}, outputs
+
+
+def _train_setup(model, renderer, points_bank, device):
+    dev = resolve_device(device)
+    model.to(dev).train()
+    renderer = dataclasses.replace(renderer,
+                                   mesh_bank=renderer.mesh_bank.to(dev))
+    return dev, renderer, points_bank.to(dev)
+
+
+def make_train_step(model: SCFlowRefiner, renderer: Renderer,
+                    points_bank: PointsBank, cfg: Config,
+                    optimizer: torch.optim.Optimizer,
+                    device: str | torch.device = "cuda"):
+    """Train step on ``device``: render at the reference pose (no grad),
+    ``scflow_loss`` in train mode, backward, clip, one AdamW update at the
+    schedule's learning rate. The model (moved to the device in place) and
+    the optimizer (built by :func:`make_optimizer` over its parameters)
+    change in place; the step returns its metrics, ``grad_norm`` (before the
+    clip) among them. Raises if CUDA is asked for and absent."""
+    dev, renderer, points_bank = _train_setup(model, renderer, points_bank,
+                                              device)
+
+    def train_step(batch: dict) -> dict:
+        batch = {k: _to_device(v, dev) for k, v in batch.items()}
+        metrics, _ = _train_cycle(model, renderer, points_bank, cfg,
+                                  optimizer, batch)
+        return metrics
+
+    return train_step
+
+
+def make_multi_cycle_train_step(model: SCFlowRefiner, renderer: Renderer,
+                                points_bank: PointsBank, cfg: Config,
+                                optimizer: torch.optim.Optimizer,
+                                cycles: int = 2,
+                                device: str | torch.device = "cuda"):
+    """Multi-cycle training: ``cycles`` train cycles per call, each one
+    update; the next cycle renders at the previous cycle's detached
+    last-iteration pose. Metrics: ``cycle{i}_loss`` and the last cycle's."""
+    dev, renderer, points_bank = _train_setup(model, renderer, points_bank,
+                                              device)
+
+    def train_step(batch: dict) -> dict:
+        batch = {k: _to_device(v, dev) for k, v in batch.items()}
+        merged = {}
+        for i in range(cycles):
+            metrics, outputs = _train_cycle(model, renderer, points_bank, cfg,
+                                            optimizer, batch)
+            merged[f"cycle{i}_loss"] = metrics["loss"]
+            batch = dict(batch,
+                         ref_rotations=outputs.rotations[-1].detach(),
+                         ref_translations=outputs.translations[-1].detach())
+        merged.update(metrics)
+        return merged
+
+    return train_step

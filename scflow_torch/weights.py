@@ -1,4 +1,4 @@
-"""Weight bridge: load the JAX package's flax variables into the port.
+"""Weight bridge: the JAX package's flax variables into the port and back.
 
 ``variables`` is ``{"params": …, "batch_stats": …}`` as nested dicts of
 numpy arrays (``jax.tree.map(np.asarray, model.init(...))``). The port's
@@ -126,3 +126,59 @@ def load_jax_variables(model: nn.Module, variables: dict) -> None:
             raise ValueError(f"{k}: flax shape {tuple(v.shape)} != port "
                              f"shape {tuple(state[k].shape)}")
     model.load_state_dict(loaded, strict=False)
+
+
+def _nest(flat: dict) -> dict:
+    out: dict = {}
+    for path, v in flat.items():
+        node = out
+        *parents, leaf = path.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return out
+
+
+def to_jax_variables(model: nn.Module, grad: bool = False) -> dict:
+    """The inverse of :func:`load_jax_variables`: flax ``{"params": …,
+    "batch_stats": …}`` as nested dicts of f32 numpy arrays, from the
+    port's parameters or, with ``grad=True``, from their ``.grad`` (which
+    must all be set). ``batch_stats`` are the BN running statistics."""
+    params, stats = {}, {}
+    for name, m in model.named_modules():
+        if not isinstance(m, (nn.Conv2d, nn.Linear, nn.BatchNorm2d,
+                              nn.GroupNorm, FusedInstanceNorm)):
+            continue
+        path = jax_path(name)
+        if path is None:
+            raise KeyError(f"no flax path for port module {name!r}")
+
+        def value(t):
+            if grad:
+                if t.grad is None:
+                    raise ValueError(f"{name}: a parameter has no gradient")
+                t = t.grad
+            return t.detach().float().cpu().numpy()
+
+        w, b = value(m.weight), value(m.bias)
+        if isinstance(m, nn.Conv2d):
+            params[f"{path}/kernel"] = w.transpose(2, 3, 1, 0)     # HWIO
+        elif isinstance(m, nn.Linear):
+            if name == _FC0:
+                # torch flattens (C, H, W); flax flattens (H, W, C)
+                c = model.decoder.pose_pred.conv_layers[-1].conv.out_channels
+                s = int(round((w.shape[1] // c) ** 0.5))
+                w = w.reshape(w.shape[0], c, s, s).transpose(0, 2, 3, 1).reshape(
+                    w.shape)
+            params[f"{path}/kernel"] = w.T
+        else:
+            params[f"{path}/scale"] = w
+            if isinstance(m, nn.BatchNorm2d):
+                stats[f"{path}/mean"] = m.running_mean.float().cpu().numpy()
+                stats[f"{path}/var"] = m.running_var.float().cpu().numpy()
+        params[f"{path}/bias"] = b
+    out = {"params": _nest({k: np.ascontiguousarray(v)
+                            for k, v in params.items()})}
+    if stats:
+        out["batch_stats"] = _nest(stats)
+    return out

@@ -54,18 +54,26 @@ def test_no_jax_import_in_source(path):
 def test_entry_points_refuse_missing_gpu(monkeypatch):
     from scflow_torch.rendering import Renderer, make_test_meshes
     from scflow_torch.training import (Config, ModelConfig, RenderConfig,
-                                       build_model, make_eval_step,
-                                       make_multi_pass_eval_step)
+                                       build_model, build_points_bank,
+                                       make_eval_step,
+                                       make_multi_cycle_train_step,
+                                       make_multi_pass_eval_step,
+                                       make_optimizer, make_train_step)
 
     cfg = Config(model=ModelConfig(num_class=2),
                  render=RenderConfig(image_size=(64, 64)))
     model = build_model(cfg, device="cpu")
-    renderer = Renderer(make_test_meshes(2, subdivisions=1, device="cpu"),
-                        image_size=(64, 64))
+    bank = make_test_meshes(2, subdivisions=1, device="cpu")
+    renderer = Renderer(bank, image_size=(64, 64))
+    points = build_points_bank(bank, num_points=8)
+    opt = make_optimizer(cfg, model.parameters())
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for call in (lambda: make_eval_step(model, renderer, cfg),
                  lambda: make_eval_step(model, renderer, cfg, device="cuda"),
                  lambda: make_multi_pass_eval_step(model, renderer, cfg),
+                 lambda: make_train_step(model, renderer, points, cfg, opt),
+                 lambda: make_multi_cycle_train_step(model, renderer, points,
+                                                     cfg, opt),
                  lambda: build_model(cfg),
                  lambda: make_test_meshes(2, subdivisions=1)):
         with pytest.raises(RuntimeError, match="no CUDA GPU"):

@@ -11,7 +11,9 @@ import pytest
 import torch
 
 from scflow_torch.ops import rasterize_fast as rf
-from scflow_torch.ops.fused_norm import (instance_norm, instance_norm_fwd,
+from scflow_torch.ops.fused_norm import (instance_norm, instance_norm_bwd,
+                                         instance_norm_bwd_reference,
+                                         instance_norm_fwd,
                                          instance_norm_reference)
 from scflow_torch.rendering import Renderer, make_test_meshes
 
@@ -62,6 +64,75 @@ def test_instance_norm_kernel_refuses(dev):
     with pytest.raises(ValueError):
         instance_norm_fwd(torch.zeros(1, 1, 256, 256, device=dev), scale[:1],
                           bias[:1])
+
+
+def assert_bwd_close(got, want, x, g):
+    """dx within 1e-5 + 1e-5·|ref| in f32 (sums in another order), within
+    one bf16 step plus that spread in bf16; dscale and dbias within 1e-5 of
+    the sums of their terms' magnitudes, Σ|g·x̂| and Σ|g|."""
+    dx, dscale, dbias = got
+    want_dx, want_scale, want_bias = want
+    assert dx.dtype == x.dtype and dscale.dtype == dbias.dtype == torch.float32
+    ref = want_dx.float()
+    allow = 1e-5 + 1e-5 * ref.abs()
+    if x.dtype == torch.bfloat16:
+        allow = 1e-5 + (ref.abs().clamp_min(2.0 ** -126).log2().floor() - 7).exp2()
+    assert ((dx.float() - ref).abs() <= allow).all()
+    xf = x.float()
+    mu = xf.mean((2, 3), keepdim=True)
+    xhat = (xf - mu) * torch.rsqrt((xf - mu).square().mean((2, 3), keepdim=True)
+                                   + 1e-5)
+    for got_s, want_s, terms in ((dscale, want_scale, g.float() * xhat),
+                                 (dbias, want_bias, g.float())):
+        mag = terms.abs().sum((0, 2, 3))
+        assert ((got_s - want_s).abs() <= 1e-5 * mag).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,c,hw", [(4, 64, 128), (4, 96, 64), (4, 128, 32),
+                                    (3, 7, 16), (5, 1, 8)])
+def test_instance_norm_bwd_kernel(dev, dtype, n, c, hw):
+    x, scale, _ = norm_inputs(dev, c, hw, n=n, dtype=dtype)
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(5)).to(
+        dev, dtype)
+    before = instance_norm_bwd.launches
+    got = instance_norm_bwd(x, g, scale)
+    again = instance_norm_bwd(x, g, scale)
+    torch.cuda.synchronize()
+    assert instance_norm_bwd.launches == before + 2
+    for a, b in zip(got, again):       # no atomics: the same bits every run
+        assert torch.equal(a, b)
+    assert_bwd_close(got, instance_norm_bwd_reference(x, g, scale), x, g)
+
+
+def test_instance_norm_autograd_launches_both_kernels(dev):
+    x, scale, bias = norm_inputs(dev, 96, 64)
+    x.requires_grad_()
+    scale.requires_grad_()
+    bias.requires_grad_()
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(6)).to(dev)
+    f0, b0 = instance_norm_fwd.launches, instance_norm_bwd.launches
+    y = instance_norm(x, scale, bias)
+    # a non-contiguous output gradient is made contiguous for the kernel
+    y.backward(g.transpose(2, 3).contiguous().transpose(2, 3))
+    torch.cuda.synchronize()
+    assert (instance_norm_fwd.launches, instance_norm_bwd.launches) == (f0 + 1,
+                                                                        b0 + 1)
+    want = instance_norm_bwd_reference(x.detach(), g, scale.detach())
+    assert_bwd_close((x.grad, scale.grad, bias.grad), want, x.detach(), g)
+
+
+def test_instance_norm_bwd_kernel_refuses(dev):
+    x, scale, _ = norm_inputs(dev, 8, 16)
+    g = torch.randn_like(x)
+    for bx, bg in ((x, g.transpose(2, 3)), (x, g.bfloat16()),
+                   (x.half(), g.half()), (x, g[:1].contiguous()),
+                   (x[:, :, :5, :5].contiguous(), g[:, :, :5, :5].contiguous()),
+                   (x.cpu(), g.cpu())):
+        with pytest.raises(ValueError):
+            instance_norm_bwd(bx, bg, scale)
+    with pytest.raises(ValueError):
+        instance_norm_bwd(x, g, scale[:4])
 
 
 def scene_inputs(dev, n=8, classes=5, subdivisions=3, size=256, seed=0,
@@ -189,3 +260,22 @@ def test_rasterize_kernel_refuses(dev):
                  attr[:, :-4].contiguous(), h, w, d, k)):
         with pytest.raises(ValueError):
             rf.rasterize_tiles(*bad)
+
+
+def test_synthetic_batch_same_on_both_devices(dev):
+    from scflow_torch.data import synthetic_batch
+
+    batches = [synthetic_batch(torch.Generator().manual_seed(3),
+                               Renderer(make_test_meshes(3, subdivisions=2,
+                                                         radius=20.0,
+                                                         device=d),
+                                        image_size=(64, 64)), 4)
+               for d in ("cpu", dev)]
+    for k, v in batches[0].items():
+        got = batches[1][k].cpu()
+        if k in ("real_images", "gt_masks"):
+            # two renders: the card's K1 and shading against the CPU's
+            # plain versions round differently; silhouettes may move a pixel
+            assert ((got - v).abs() > 1e-3).float().mean() < 0.01, k
+        else:                                      # poses drawn on the CPU
+            assert torch.equal(got, v), k
