@@ -35,8 +35,26 @@ Phases (each prints one JSON line; any failed check raises):
           statistics, step time, peak memory and one profiled step's top
           kernels; the loss and gradients of 2 samples against the port on
           the CPU; one 2-cycle step.
-Then the ``kernels`` line, the card line from nvidia-smi and, last,
-``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA GPU.
+  bf16    the main path's eval step with ``dtype="bfloat16"``: launches
+          per step (K1 1, K2 30, every K2 input bf16), step time, frames/s,
+          peak memory; the card's bf16 poses of 2 samples within 3× the
+          CPU's bf16-vs-f32 gap of the CPU's bf16 poses.
+  train_bf16  the train step in bf16 (batch 16): 2 warm-up and 4 timed
+          steps, launches per step (K2 backward 30 on bf16), finite
+          metrics, moved parameters, step time, peak memory.
+  raft    the RAFT eval step at the raft_ycbv width (flow + occlusion, 12
+          iterations, RANSAC-EPnP: 1024 points, 64 hypotheses) at batch 32,
+          256², f32: launches per step, step time, the network and PnP
+          stages timed alone, the share of solved samples; the flows and
+          occlusions of 2 samples against the CPU; PnP on the exact flow to
+          the GT pose, the same draws on the card and the CPU, within 0.5°
+          and 5 mm of the GT pose.
+  raft_train  the RAFT train step (raft_loss) at batch 16: 2 warm-up and 3
+          timed steps, launches per step, finite metrics, moved parameters.
+Then the ``kernels`` line (K1, the K2 forward and backward in f32 and in
+bf16, each with its launches on every path), the card line from nvidia-smi
+and, last, ``{"ok": true, "device": {...}}``. Exits non-zero without a
+CUDA GPU.
 """
 from __future__ import annotations
 
@@ -69,6 +87,16 @@ K2_BWD_OPS_PER_ELEM = 16  # statistics 4, the two sums 5, dx 7
 IN_SHAPES = ((64, 128), (96, 64), (128, 32))
 # tolerances of the CPU parity tests (tests/test_torch_port_*.py)
 POSE_TOL = dict(rot_atol=2e-3, trans_rtol=2e-3, trans_atol=2e-4)
+# bf16: the card's poses within this multiple of the CPU's own bf16-vs-f32
+# gap of the CPU's bf16 poses (two bf16 roundings apart, each ~1 gap)
+BF16_GAP_MULT = 3.0
+BF16_TRAIN_STEPS = 4
+# RAFT (the raft_ycbv recipe): 12 iterations; the network's flows and
+# occlusions against the CPU at the CPU tests' bounds
+RAFT_ITERS = 12
+RAFT_STEPS, RAFT_TRAIN_STEPS = 5, 3
+RAFT_FLOW_TOL = dict(rtol=2e-3, atol=2e-3)
+RAFT_OCC_TOL = dict(rtol=0.0, atol=1e-3)
 
 
 def emit(**fields) -> None:
@@ -156,8 +184,8 @@ def bound_ms(bytes_moved: float, ops: float) -> tuple[float, str]:
 
 
 def make_batch(renderer, n: int, seed: int):
-    """Seeded scene: 'real' uint8 crops rendered at a random pose, and the
-    initial pose that pose jittered (15° / (15, 15, 50) mm, clipped)."""
+    """Seeded scene: 'real' uint8 crops rendered at a random (GT) pose, and
+    the initial pose that pose jittered (15° / (15, 15, 50) mm, clipped)."""
     import torch
 
     from scflow_torch.geometry import quaternion_to_matrix
@@ -186,6 +214,7 @@ def make_batch(renderer, n: int, seed: int):
         "real_images": (real["images"] * 255).round().to(torch.uint8),
         "ref_rotations": ref_r.to(dev), "ref_translations": ref_t.to(dev),
         "k": k.to(dev), "labels": labels.to(dev),
+        "gt_rotations": gt_r.to(dev), "gt_translations": gt_t.to(dev),
     }
 
 
@@ -245,7 +274,28 @@ def phase_k1(renderer, batch) -> dict:
     return row
 
 
-def phase_k2() -> dict:
+def _totals() -> dict:
+    return {dt: dict(ms=0.0, call_ms=0.0, plain_ms=0.0, library_ms=0.0,
+                     bytes=0.0, ops=0.0, worst=0.0) for dt in ("f32", "bf16")}
+
+
+def _kernel_rows(name: str, replaces: str, totals: dict) -> list:
+    """One kernels-line row per dtype from per-step ``totals``."""
+    rows = []
+    for dt, tot in totals.items():
+        b_ms, b_by = bound_ms(tot["bytes"], tot["ops"])
+        rows.append(dict(
+            name=name if dt == "f32" else f"{name}[bf16]", route="cuda",
+            source="scflow_torch/ops/csrc/instance_norm.cu",
+            replaces=replaces, max_abs_err=tot["worst"], ms=tot["ms"],
+            call_ms=tot["call_ms"], plain_ms=tot["plain_ms"], bound_ms=b_ms,
+            bound_by=b_by, library_ms=tot["library_ms"]))
+    return rows
+
+
+def phase_k2() -> list:
+    """Rows for the f32 and the bf16 forward, per step (10 launches of
+    each encoder shape at the eval batch)."""
     import torch
     import torch.nn.functional as F
 
@@ -253,9 +303,7 @@ def phase_k2() -> dict:
                                              instance_norm_reference)
 
     g = torch.Generator().manual_seed(1)
-    totals = dict(ms=0.0, call_ms=0.0, plain_ms=0.0, library_ms=0.0,
-                  bytes=0.0, ops=0.0)
-    worst = 0.0
+    totals = _totals()
     for c, side in IN_SHAPES:
         x32 = (torch.randn(BATCH, c, side, side, generator=g) * 2 + 0.5).cuda()
         scale = (1 + 0.3 * torch.randn(c, generator=g)).cuda()
@@ -280,31 +328,24 @@ def phase_k2() -> dict:
             plain = device_ms(
                 lambda: instance_norm_reference(next(xs), scale, bias),
                 KERNEL_REPS)
-            lib = None
-            if dtype == torch.float32:
-                lib = device_ms(lambda: F.instance_norm(
-                    next(xs), weight=scale, bias=bias, eps=1e-5), KERNEL_REPS)
+            # f32 (C,) affine parameters with a bf16 input, as the port's
+            lib = device_ms(lambda: F.instance_norm(
+                next(xs), weight=scale, bias=bias, eps=1e-5), KERNEL_REPS)
             del xs
             moved = 2 * x.numel() * x.element_size()
             b_ms, b_by = bound_ms(moved, x.numel() * K2_OPS_PER_ELEM)
             emit(phase="k2", shape=list(x.shape), dtype=str(dtype),
                  max_abs_err=err, ms=ms, call_ms=one, plain_ms=plain,
                  library_ms=lib, bound_ms=b_ms, bound_by=b_by)
-            if dtype == torch.float32:
-                worst = max(worst, err)
-                # 10 launches of this shape per eval step (5 per encoder pass)
-                for key, v in (("ms", ms), ("call_ms", one),
-                               ("plain_ms", plain), ("library_ms", lib),
-                               ("bytes", moved),
-                               ("ops", x.numel() * K2_OPS_PER_ELEM)):
-                    totals[key] += 10 * v
-    b_ms, b_by = bound_ms(totals["bytes"], totals["ops"])
-    return dict(name="instance_norm_fwd", route="cuda",
-                source="scflow_torch/ops/csrc/instance_norm.cu",
-                replaces="scflow_tpu/ops/fused_norm.py:39",
-                max_abs_err=worst, ms=totals["ms"], call_ms=totals["call_ms"],
-                plain_ms=totals["plain_ms"], bound_ms=b_ms, bound_by=b_by,
-                library_ms=totals["library_ms"])
+            tot = totals["f32" if dtype == torch.float32 else "bf16"]
+            tot["worst"] = max(tot["worst"], err)
+            # 10 launches of this shape per eval step (5 per encoder pass)
+            for key, v in (("ms", ms), ("call_ms", one), ("plain_ms", plain),
+                           ("library_ms", lib), ("bytes", moved),
+                           ("ops", x.numel() * K2_OPS_PER_ELEM)):
+                tot[key] += 10 * v
+    return _kernel_rows("instance_norm_fwd", "scflow_tpu/ops/fused_norm.py:39",
+                        totals)
 
 
 def reset_counts() -> None:
@@ -325,9 +366,11 @@ def counts() -> tuple[int, int, int]:
             instance_norm_bwd.launches)
 
 
-def run_path(name: str, step, batch, steps: int, renders: int) -> dict:
+def run_path(name: str, step, batch, steps: int, renders: int,
+             moves: bool = True) -> dict:
     """Drive one path ``steps`` times with the counts at 0 just before;
-    check K1 = renders and K2 = 30·renders launches per step."""
+    check K1 = renders and K2 = 30·renders launches per step, finite
+    outputs and (``moves``) a moved pose."""
     import torch
 
     reset_counts()
@@ -347,7 +390,7 @@ def run_path(name: str, step, batch, steps: int, renders: int) -> dict:
     for key, v in out.items():
         check(bool(torch.isfinite(v).all()), f"{name}: {key} not finite")
     moved = (out["translations"] - batch["ref_translations"]).abs().max()
-    check(moved.item() > 1e-3, f"{name}: pose did not move")
+    check(not moves or moved.item() > 1e-3, f"{name}: pose did not move")
     return dict(out=out, times=times, k1=k1, k2=k2)
 
 
@@ -424,7 +467,9 @@ def phase_profile(model, renderer, cfg, step, batch) -> None:
                        "ms_per_step": e.self_device_time_total / 1e3 / 2,
                        "calls_per_step": e.count / 2} for e in top])
 
-def phase_k2_bwd() -> dict:
+def phase_k2_bwd() -> list:
+    """Rows for the f32 and the bf16 backward, per train step (10 launches
+    of each encoder shape at the train batch)."""
     import torch
     import torch.nn.functional as F
 
@@ -432,9 +477,7 @@ def phase_k2_bwd() -> dict:
                                              instance_norm_bwd_reference)
 
     g = torch.Generator().manual_seed(2)
-    totals = dict(ms=0.0, call_ms=0.0, plain_ms=0.0, library_ms=0.0,
-                  bytes=0.0, ops=0.0)
-    worst = 0.0
+    totals = _totals()
     for c, side in IN_SHAPES:
         x32 = (torch.randn(TRAIN_BATCH, c, side, side, generator=g) * 2
                + 0.5).cuda()
@@ -484,27 +527,24 @@ def phase_k2_bwd() -> dict:
             ms = device_ms(kernel, KERNEL_REPS)
             one = call_ms(kernel, KERNEL_REPS)
             plain_ms = device_ms(plain, KERNEL_REPS)
-            lib = None
-            if dtype == torch.float32:
-                # F.instance_norm's autograd backward, one kept graph per copy
-                graphs = []
-                for _ in range(copies):
-                    a, b = next(pairs)
-                    leaves = [a.detach().requires_grad_(),
-                              scale.detach().requires_grad_(),
-                              bias.detach().requires_grad_()]
-                    y = F.instance_norm(leaves[0], weight=leaves[1],
-                                        bias=leaves[2], eps=1e-5)
-                    graphs.append((y, leaves, b))
-                lib_graphs = itertools.cycle(graphs)
+            # F.instance_norm's autograd backward, one kept graph per copy
+            graphs = []
+            for _ in range(copies):
+                a, b = next(pairs)
+                leaves = [a.detach().requires_grad_(),
+                          scale.detach().requires_grad_(),
+                          bias.detach().requires_grad_()]
+                y = F.instance_norm(leaves[0], weight=leaves[1],
+                                    bias=leaves[2], eps=1e-5)
+                graphs.append((y, leaves, b))
+            lib_graphs = itertools.cycle(graphs)
 
-                def library():
-                    y, leaves, b = next(lib_graphs)
-                    return torch.autograd.grad(y, leaves, b, retain_graph=True)
+            def library():
+                y, leaves, b = next(lib_graphs)
+                return torch.autograd.grad(y, leaves, b, retain_graph=True)
 
-                lib = device_ms(library, KERNEL_REPS)
-                del graphs, lib_graphs
-            del pairs
+            lib = device_ms(library, KERNEL_REPS)
+            del graphs, lib_graphs, pairs
             moved = 3 * x.numel() * x.element_size() + 3 * c * 4
             ops = x.numel() * K2_BWD_OPS_PER_ELEM
             b_ms, b_by = bound_ms(moved, ops)
@@ -512,20 +552,37 @@ def phase_k2_bwd() -> dict:
                  max_abs_err=err, sums_max_rel_err=sum_err, ms=ms,
                  call_ms=one, plain_ms=plain_ms, library_ms=lib,
                  bound_ms=b_ms, bound_by=b_by)
-            if dtype == torch.float32:
-                worst = max(worst, err)
-                # 10 launches of this shape per train step
-                for key, v in (("ms", ms), ("call_ms", one),
-                               ("plain_ms", plain_ms), ("library_ms", lib),
-                               ("bytes", moved), ("ops", ops)):
-                    totals[key] += 10 * v
-    b_ms, b_by = bound_ms(totals["bytes"], totals["ops"])
-    return dict(name="instance_norm_bwd", route="cuda",
-                source="scflow_torch/ops/csrc/instance_norm.cu",
-                replaces="scflow_tpu/ops/fused_norm.py:148 (_bwd, plain XLA)",
-                max_abs_err=worst, ms=totals["ms"], call_ms=totals["call_ms"],
-                plain_ms=totals["plain_ms"], bound_ms=b_ms, bound_by=b_by,
-                library_ms=totals["library_ms"])
+            tot = totals["f32" if dtype == torch.float32 else "bf16"]
+            tot["worst"] = max(tot["worst"], err)
+            # 10 launches of this shape per train step
+            for key, v in (("ms", ms), ("call_ms", one),
+                           ("plain_ms", plain_ms), ("library_ms", lib),
+                           ("bytes", moved), ("ops", ops)):
+                tot[key] += 10 * v
+    return _kernel_rows("instance_norm_bwd",
+                        "scflow_tpu/ops/fused_norm.py:148 (_bwd, plain XLA)",
+                        totals)
+
+
+def profile_kernels(fn, top: int = 12) -> dict:
+    """One call of ``fn`` under torch.profiler (outside any counted run):
+    the sum of its kernels' self device time, their launches, and the
+    ``top`` kernels by device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    ranked = sorted(kernels, key=lambda e: e.self_device_time_total,
+                    reverse=True)
+    return dict(
+        profiled_kernel_ms=sum(e.self_device_time_total for e in kernels) / 1e3,
+        profiled_kernel_launches=sum(e.count for e in kernels),
+        top_kernels=[{"name": e.key[:90], "ms": e.self_device_time_total / 1e3,
+                      "calls": e.count} for e in ranked[:top]])
 
 
 def flat_grads(model) -> "torch.Tensor":
@@ -582,85 +639,33 @@ def train_parity(cfg, renderer, points, batch) -> dict:
                 grad_bound=max(1e-3, 5 * spread), cpu_seconds=cpu_s)
 
 
-def phase_train(bank) -> dict:
-    """Returns the train run's K2-backward launch count."""
+def phase_train(bank) -> tuple:
+    """The f32 train step: :func:`drive_train`, then the card against the
+    CPU on 2 samples and one 2-cycle step. Returns the run's launches of
+    K1, the K2 forward and backward."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    from scflow_torch.data import synthetic_batch
-    from scflow_torch.rendering import Renderer
     from scflow_torch.training import (Config, DataConfig, ModelConfig,
-                                       RenderConfig, build_model,
-                                       build_points_bank,
-                                       make_multi_cycle_train_step,
-                                       make_optimizer, make_train_step)
+                                       RenderConfig, build_points_bank,
+                                       make_multi_cycle_train_step)
 
     cfg = Config(model=ModelConfig(num_class=NUM_CLASS, iters=ITERS,
                                    test_iters=ITERS),
                  render=RenderConfig(image_size=SIZE),
                  data=DataConfig(batch_size=TRAIN_BATCH))
-    renderer = Renderer(bank, image_size=SIZE)
     # the icospheres (even labels) are symmetric: the symmetric matching runs
     points = build_points_bank(bank, symmetric_classes=range(0, NUM_CLASS, 2),
                                num_points=cfg.loss.num_loss_points)
-    batch = synthetic_batch(torch.Generator().manual_seed(0), renderer,
-                            cfg.data.batch_size)
-    check(bool((batch["gt_masks"].sum((1, 2)) > 0).all()),
-          "train: an object is not visible")
-    model = build_model(cfg, device="cuda", seed=0)
-    opt = make_optimizer(cfg, model.parameters())
-    step = make_train_step(model, renderer, points, cfg, opt, device="cuda")
-    params0 = [p.detach().clone() for p in model.parameters()]
-    stats0 = [b.detach().clone() for n, b in model.named_buffers()
-              if n.endswith(("running_mean", "running_var"))]
+    out, run = drive_train("train", cfg, bank, points, TRAIN_WARMUP,
+                           TRAIN_STEPS)
+    parity = train_parity(cfg, run["renderer"], points, run["batch"])
 
-    for _ in range(TRAIN_WARMUP):
-        step(batch)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    times, losses = [], []
-    metrics = None
-    for _ in range(TRAIN_STEPS):
-        t0 = time.perf_counter()
-        metrics = step(batch)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        losses.append(metrics["loss"].item())
-    k1, k2f, k2b = counts()
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    want = (TRAIN_STEPS, 30 * TRAIN_STEPS, 30 * TRAIN_STEPS)
-    check((k1, k2f, k2b) == want,
-          f"train: launches K1/K2 fwd/K2 bwd {(k1, k2f, k2b)}, want {want}")
-    for key, v in metrics.items():
-        check(bool(torch.isfinite(v).all()), f"train: {key} not finite")
-    check(metrics["grad_norm"].item() > 0, "train: zero gradient")
-    moved = max((p.detach() - p0).abs().max().item()
-                for p, p0 in zip(model.parameters(), params0))
-    check(moved > 0, "train: the parameters did not move")
-    stats1 = [b for n, b in model.named_buffers()
-              if n.endswith(("running_mean", "running_var"))]
-    stats_moved = max((a - b).abs().max().item()
-                      for a, b in zip(stats1, stats0))
-    check(stats_moved > 0, "train: the BN running statistics did not move")
-
-    # one step's kernels by device time (outside the counted run)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        step(batch)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3
-    top = sorted(kernels, key=lambda e: e.self_device_time_total,
-                 reverse=True)[:12]
-
-    parity = train_parity(cfg, renderer, points, batch)
-
-    multi = make_multi_cycle_train_step(model, renderer, points, cfg, opt,
-                                        cycles=2, device="cuda")
+    multi = make_multi_cycle_train_step(run["model"], run["renderer"], points,
+                                        cfg, run["optimizer"], cycles=2,
+                                        device="cuda")
     reset_counts()
     t0 = time.perf_counter()
-    mc = multi(batch)
+    mc = multi(run["batch"])
     torch.cuda.synchronize()
     mc_s = time.perf_counter() - t0
     mc_counts = counts()
@@ -669,26 +674,340 @@ def phase_train(bank) -> dict:
     for key, v in mc.items():
         check(bool(torch.isfinite(v).all()), f"train 2-cycle: {key} not finite")
 
-    step_ms = 1e3 * statistics.median(times)
-    emit(phase="train", batch=TRAIN_BATCH, image=list(SIZE), classes=NUM_CLASS,
-         iters=ITERS, lowres=False, dtype="float32", steps=TRAIN_STEPS,
-         step_ms_median=step_ms, step_ms_min=1e3 * min(times),
-         step_ms_max=1e3 * max(times), step_ms=[1e3 * t for t in times],
-         samples_per_s=TRAIN_BATCH / (step_ms / 1e3), peak_mem_gib=peak,
-         losses=losses, grad_norm=metrics["grad_norm"].item(),
-         param_max_change=moved, bn_stats_max_change=stats_moved,
-         launches_per_step={"rasterize_tiles": k1 // TRAIN_STEPS,
-                            "instance_norm_fwd": k2f // TRAIN_STEPS,
-                            "instance_norm_bwd": k2b // TRAIN_STEPS},
-         profiled_kernel_ms=busy,
-         top_kernels=[{"name": e.key[:90],
-                       "ms": e.self_device_time_total / 1e3,
-                       "calls": e.count} for e in top],
+    launches = out.pop("launches")
+    emit(phase="train", classes=NUM_CLASS, lowres=False, **out,
          cpu_parity=parity,
          two_cycle={"ms": 1e3 * mc_s, "launches": list(mc_counts),
                     "cycle0_loss": mc["cycle0_loss"].item(),
                     "cycle1_loss": mc["cycle1_loss"].item()})
-    return k2b
+    return launches
+
+
+def norm_input_dtypes(model) -> tuple[list, list]:
+    """Forward pre-hooks on every instance norm of ``model`` that record
+    the type of the tensor each call hands to K2: (records, handles)."""
+    from scflow_torch.models.layers import FusedInstanceNorm
+
+    seen = []
+    handles = [m.register_forward_pre_hook(
+        lambda mod, args: seen.append(args[0].dtype))
+        for m in model.modules() if isinstance(m, FusedInstanceNorm)]
+    return seen, handles
+
+
+def pose_gap(a: dict, b: dict) -> dict:
+    """Largest rotation-entry and translation differences of two outputs."""
+    return {key: (a[key].cpu() - b[key].cpu()).abs().max().item()
+            for key in ("rotations", "translations")}
+
+
+def phase_bf16(renderer, batch, cpu_f32, gpu_f32) -> tuple:
+    """The eval step in bf16 at the main path's shapes; returns the run's
+    K1 and K2 launches. ``cpu_f32``/``gpu_f32``: the f32 outputs of the main
+    path's 2 CPU samples and of the card."""
+    import torch
+
+    from scflow_torch.rendering import Renderer, make_test_meshes
+    from scflow_torch.training import (Config, ModelConfig, RenderConfig,
+                                       build_model, make_eval_step)
+
+    cfg = Config(model=ModelConfig(num_class=NUM_CLASS, iters=ITERS,
+                                   test_iters=ITERS, dtype="bfloat16"),
+                 render=RenderConfig(image_size=SIZE))
+    model = build_model(cfg, device="cuda", seed=0)
+    step = make_eval_step(model, renderer, cfg, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    run_path("bf16_warmup", step, batch, WARMUP, renders=1)
+    seen, handles = norm_input_dtypes(model)
+    run = run_path("bf16", step, batch, STEPS, renders=1)
+    for h in handles:
+        h.remove()
+    check(len(seen) == 30 * STEPS and set(seen) == {torch.bfloat16},
+          f"bf16: K2 inputs {len(seen)} of types {set(seen)}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_ms = 1e3 * statistics.median(run["times"])
+    kernels = profile_kernels(lambda: step(batch))
+
+    cpu_model = build_model(cfg, device="cpu", seed=0)
+    cpu_renderer = Renderer(make_test_meshes(NUM_CLASS, subdivisions=3,
+                                             radius=60.0, device="cpu"),
+                            image_size=SIZE)
+    t0 = time.perf_counter()
+    cpu_bf16 = make_eval_step(cpu_model, cpu_renderer, cfg, device="cpu")(
+        {k: v[:2].cpu() for k, v in batch.items()})
+    cpu_s = time.perf_counter() - t0
+    gpu_bf16 = {k: v[:2] for k, v in run["out"].items()}
+    gpu_f32 = {k: v[:2] for k, v in gpu_f32.items()}
+    err = pose_gap(gpu_bf16, cpu_bf16)
+    gap = pose_gap(cpu_bf16, cpu_f32)
+    for key in err:
+        check(err[key] <= BF16_GAP_MULT * gap[key],
+              f"bf16 parity: {key} err {err[key]} > {BF16_GAP_MULT} × the "
+              f"CPU's bf16-vs-f32 gap {gap[key]}")
+    emit(phase="bf16", batch=BATCH, image=list(SIZE), classes=NUM_CLASS,
+         iters=ITERS, lowres=True, dtype="bfloat16", steps=STEPS,
+         step_ms_median=step_ms, step_ms_min=1e3 * min(run["times"]),
+         step_ms=[1e3 * t for t in run["times"]],
+         frames_per_s=BATCH / (step_ms / 1e3), peak_mem_gib=peak,
+         launches_per_step={"rasterize_tiles": run["k1"] // STEPS,
+                            "instance_norm_fwd": run["k2"] // STEPS},
+         k2_input_dtypes=sorted(str(d) for d in set(seen)), **kernels,
+         cpu_parity={"samples": 2, "card_bf16_vs_cpu_bf16": err,
+                     "cpu_bf16_vs_cpu_f32": gap,
+                     "card_bf16_vs_card_f32": pose_gap(gpu_bf16, gpu_f32),
+                     "bound": f"{BF16_GAP_MULT} x cpu_bf16_vs_cpu_f32",
+                     "cpu_seconds": cpu_s})
+    return run["k1"], run["k2"]
+
+
+def drive_train(name: str, cfg, bank, points, warmup: int, steps: int,
+                dtype_check=None) -> tuple[dict, dict]:
+    """Train ``steps`` steps after ``warmup`` on one synthetic batch (seed 0)
+    with the counts at 0 just before; check launches per step (K1 1, K2
+    forward and backward 30 each), finite metrics, a gradient, moved
+    parameters and BN statistics, and (``dtype_check``) the one type of
+    every K2 input; profile one more step. Returns (the line's fields,
+    the run: model, optimizer, renderer, batch)."""
+    import torch
+
+    from scflow_torch.data import synthetic_batch
+    from scflow_torch.rendering import Renderer
+    from scflow_torch.training import build_model, make_optimizer, make_train_step
+
+    renderer = Renderer(bank, image_size=SIZE)
+    batch = synthetic_batch(torch.Generator().manual_seed(0), renderer,
+                            cfg.data.batch_size)
+    check(bool((batch["gt_masks"].sum((1, 2)) > 0).all()),
+          f"{name}: an object is not visible")
+    model = build_model(cfg, device="cuda", seed=0)
+    opt = make_optimizer(cfg, model.parameters())
+    step = make_train_step(model, renderer, points, cfg, opt, device="cuda")
+
+    def bn_stats():
+        return [b.detach().clone() for n, b in model.named_buffers()
+                if n.endswith(("running_mean", "running_var"))]
+
+    params0 = [p.detach().clone() for p in model.parameters()]
+    stats0 = bn_stats()
+    for _ in range(warmup):
+        step(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    seen, handles = norm_input_dtypes(model)
+    reset_counts()
+    times, losses = [], []
+    metrics = None
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        metrics = step(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(metrics["loss"].item())
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for h in handles:
+        h.remove()
+    want = (steps, 30 * steps, 30 * steps)
+    check(launches == want, f"{name}: launches K1/K2 fwd/K2 bwd {launches}, "
+          f"want {want}")
+    if dtype_check is not None:
+        check(set(seen) == {dtype_check},
+              f"{name}: K2 inputs of types {set(seen)}")
+    for key, v in metrics.items():
+        check(bool(torch.isfinite(v).all()), f"{name}: {key} not finite")
+    check(metrics["loss"].item() > 0 and metrics["grad_norm"].item() > 0,
+          f"{name}: zero loss or gradient")
+    moved = max((p.detach() - p0).abs().max().item()
+                for p, p0 in zip(model.parameters(), params0))
+    check(moved > 0, f"{name}: the parameters did not move")
+    stats_moved = max((a - b).abs().max().item()
+                      for a, b in zip(bn_stats(), stats0))
+    check(stats_moved > 0, f"{name}: the BN running statistics did not move")
+    step_ms = 1e3 * statistics.median(times)
+    out = dict(batch=cfg.data.batch_size, image=list(SIZE),
+               iters=cfg.model.iters, dtype=cfg.model.dtype, steps=steps,
+               step_ms_median=step_ms, step_ms_min=1e3 * min(times),
+               step_ms_max=1e3 * max(times), step_ms=[1e3 * t for t in times],
+               samples_per_s=cfg.data.batch_size / (step_ms / 1e3),
+               peak_mem_gib=peak, losses=losses,
+               grad_norm=metrics["grad_norm"].item(),
+               param_max_change=moved, bn_stats_max_change=stats_moved,
+               launches=launches,
+               launches_per_step={"rasterize_tiles": launches[0] // steps,
+                                  "instance_norm_fwd": launches[1] // steps,
+                                  "instance_norm_bwd": launches[2] // steps},
+               k2_input_dtypes=sorted(str(d) for d in set(seen)),
+               **profile_kernels(lambda: step(batch)))
+    return out, dict(model=model, optimizer=opt, renderer=renderer,
+                     batch=batch)
+
+
+def phase_train_bf16(bank) -> tuple:
+    """The train step in bf16 at the train phase's shapes; returns the
+    run's launches of K1, the K2 forward and backward."""
+    import torch
+
+    from scflow_torch.training import (Config, DataConfig, ModelConfig,
+                                       RenderConfig, build_points_bank)
+
+    cfg = Config(model=ModelConfig(num_class=NUM_CLASS, iters=ITERS,
+                                   test_iters=ITERS, dtype="bfloat16"),
+                 render=RenderConfig(image_size=SIZE),
+                 data=DataConfig(batch_size=TRAIN_BATCH))
+    points = build_points_bank(bank, symmetric_classes=range(0, NUM_CLASS, 2),
+                               num_points=cfg.loss.num_loss_points)
+    out, _ = drive_train("train_bf16", cfg, bank, points, TRAIN_WARMUP,
+                         BF16_TRAIN_STEPS, dtype_check=torch.bfloat16)
+    launches = out.pop("launches")
+    emit(phase="train_bf16", lowres=False, **out)
+    return launches
+
+
+def raft_config(**data):
+    """The ``raft_ycbv`` recipe at full width: RAFT flow + occlusion, Basic
+    encoders (shared), 4 levels, radius 4, 12 iterations; flow and mask
+    losses of weight 1, no pose loss."""
+    from scflow_torch.training import (Config, DataConfig, LossConfig,
+                                       ModelConfig, RenderConfig)
+
+    return Config(model=ModelConfig(family="raft_flow_mask", num_class=NUM_CLASS,
+                                    iters=RAFT_ITERS, test_iters=RAFT_ITERS),
+                  loss=LossConfig(pose_weight=0.0, flow_weight=1.0,
+                                  mask_weight=1.0),
+                  render=RenderConfig(image_size=SIZE),
+                  data=DataConfig(**data))
+
+
+def pnp_known_flow(renderer, batch) -> dict:
+    """PnP on the exact flow from the reference to the GT pose of the
+    batch's render, at batch 32, with the same injected draws on the card
+    and the CPU: every sample must recover the GT pose within 0.5° and
+    5 mm (tests/test_flow_pose.py's bounds)."""
+    import torch
+
+    from scflow_torch.geometry import flow_from_pose_and_depth
+    from scflow_torch.models.flow_pose import (gumbel_draws,
+                                               solve_pose_from_flow_core)
+
+    with torch.inference_mode():
+        depth = renderer(batch["ref_rotations"], batch["ref_translations"],
+                         batch["k"], batch["labels"].long())["depth"]
+        flow = flow_from_pose_and_depth(
+            batch["ref_rotations"], batch["ref_translations"],
+            batch["gt_rotations"], batch["gt_translations"], depth,
+            batch["k"])
+        n, h, w = depth.shape
+        draws = gumbel_draws(torch.Generator().manual_seed(1), n, h * w)
+        args = (flow, None, depth, batch["ref_rotations"],
+                batch["ref_translations"], batch["k"])
+        gt_r, gt_t = (batch[k].cpu() for k in ("gt_rotations",
+                                                "gt_translations"))
+        summary, results = {}, []
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            res = solve_pose_from_flow_core(
+                *(d.to(dev) for d in draws),
+                *(None if a is None else a.to(dev) for a in args))
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            # angle from ‖R − R_gt‖_F = 2√2·sin(θ/2) (acos of the trace
+            # cannot resolve f32 angles below ~0.02°)
+            fro = (res["rotations"].cpu().double() - gt_r.double()).flatten(1)
+            ang = torch.rad2deg(2 * torch.asin(
+                (fro.norm(dim=-1) / (2 * math.sqrt(2))).clamp(max=1.0)))
+            dt = (res["translations"].cpu() - gt_t).norm(dim=-1)
+            check(bool(res["valid"].all()), f"pnp {dev}: a sample fell back")
+            check(ang.max().item() < 0.5 and dt.max().item() < 5.0,
+                  f"pnp {dev}: {ang.max().item()} deg, {dt.max().item()} mm")
+            summary[dev] = dict(max_deg=ang.max().item(),
+                                max_mm=dt.max().item(), seconds=sec)
+            results.append(res)
+    summary["card_vs_cpu"] = pose_gap(*results)
+    return summary
+
+
+def phase_raft(renderer, batch) -> tuple:
+    """The RAFT eval step (flow → RANSAC-EPnP) at the raft_ycbv width and
+    the main path's batch; returns the run's K1 and K2 launches."""
+    import torch
+
+    from scflow_torch.models.flow_pose import solve_pose_from_flow
+    from scflow_torch.training import (build_model, device_normalize_images,
+                                       make_eval_step, render_at_pose)
+
+    cfg = raft_config()
+    model = build_model(cfg, device="cuda", seed=0)
+    step = make_eval_step(model, renderer, cfg, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    run_path("raft_warmup", step, batch, WARMUP, renders=1, moves=False)
+    run = run_path("raft", step, batch, RAFT_STEPS, renders=1, moves=False)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_ms = 1e3 * statistics.median(run["times"])
+    valid = run["out"]["pnp_valid"]
+    kernels = profile_kernels(lambda: step(batch))
+
+    # the two stages alone, one call each (host time included)
+    with torch.inference_mode():
+        rendered, depth, _ = render_at_pose(
+            renderer, batch["ref_rotations"], batch["ref_translations"],
+            batch["k"], batch["labels"].long(), cfg.data.normalize_mean,
+            cfg.data.normalize_std)
+        real = device_normalize_images(batch["real_images"], cfg)
+        flows, masks = model(rendered, real, iters=cfg.model.test_iters)
+        net_ms = call_ms(lambda: model(rendered, real,
+                                       iters=cfg.model.test_iters), 3, 1)
+        pnp_ms = call_ms(lambda: solve_pose_from_flow(
+            torch.Generator(device="cuda").manual_seed(0), flows[-1],
+            masks[-1][..., 0], depth, batch["ref_rotations"],
+            batch["ref_translations"], batch["k"]), 3, 1)
+
+    # the network's flows and occlusions of 2 samples against the CPU, on
+    # the card's rendered and real images
+    cpu_model = build_model(cfg, device="cpu", seed=0)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        cpu_flows, cpu_masks = cpu_model(rendered[:2].cpu(), real[:2].cpu(),
+                                         iters=cfg.model.test_iters)
+    cpu_s = time.perf_counter() - t0
+    errs = {}
+    for key, got, want, tol in (
+            ("flow", flows[-1, :2], cpu_flows[-1], RAFT_FLOW_TOL),
+            ("masks", masks[-1, :2], cpu_masks[-1], RAFT_OCC_TOL)):
+        diff = (got.cpu() - want).abs()
+        errs[key] = diff.max().item()
+        check(bool((diff <= tol["atol"] + tol["rtol"] * want.abs()).all()),
+              f"raft cpu parity: {key} err {errs[key]}")
+    del flows, masks, cpu_flows, cpu_masks
+    pnp = pnp_known_flow(renderer, batch)
+    emit(phase="raft", family="raft_flow_mask", batch=BATCH, image=list(SIZE),
+         iters=RAFT_ITERS, dtype="float32", steps=RAFT_STEPS,
+         step_ms_median=step_ms, step_ms_min=1e3 * min(run["times"]),
+         step_ms=[1e3 * t for t in run["times"]],
+         frames_per_s=BATCH / (step_ms / 1e3), peak_mem_gib=peak,
+         network_ms=net_ms, pnp_ms=pnp_ms,
+         pnp_valid_share=valid.float().mean().item(), **kernels,
+         launches_per_step={"rasterize_tiles": run["k1"] // RAFT_STEPS,
+                            "instance_norm_fwd": run["k2"] // RAFT_STEPS},
+         cpu_parity={"samples": 2, "max_abs_err": errs,
+                     "flow_tol": RAFT_FLOW_TOL, "occlusion_tol": RAFT_OCC_TOL,
+                     "cpu_seconds": cpu_s},
+         pnp_known_flow=pnp)
+    return run["k1"], run["k2"]
+
+
+def phase_raft_train(bank) -> tuple:
+    """The RAFT train step (raft_loss) at the train batch, 12 iterations;
+    returns the run's launches of K1, the K2 forward and backward."""
+    from scflow_torch.training import build_points_bank
+
+    cfg = raft_config(batch_size=TRAIN_BATCH)
+    points = build_points_bank(bank, num_points=cfg.loss.num_loss_points)
+    out, _ = drive_train("raft_train", cfg, bank, points, TRAIN_WARMUP,
+                         RAFT_TRAIN_STEPS)
+    launches = out.pop("launches")
+    emit(phase="raft_train", family="raft_flow_mask", **out)
+    return launches
 
 
 def main() -> int:
@@ -728,14 +1047,14 @@ def main() -> int:
     renderer = Renderer(bank, image_size=SIZE)
     with torch.inference_mode():
         batch = make_batch(renderer, BATCH, seed=0)
-        rows = [phase_k1(renderer, batch), phase_k2()]
+        k1_row = phase_k1(renderer, batch)
+        fwd_rows = phase_k2()
 
     model = build_model(cfg, device="cuda", seed=0)
     step = make_eval_step(model, renderer, cfg, device="cuda")
     torch.cuda.reset_peak_memory_stats()
     run_path("warmup", step, batch, WARMUP, renders=1)
     main_run = run_path("main", step, batch, STEPS, renders=1)
-    rows[0]["launches"], rows[1]["launches"] = main_run["k1"], main_run["k2"]
     step_ms = 1e3 * statistics.median(main_run["times"])
 
     # the same 2 samples through the port on the CPU: plain versions
@@ -778,11 +1097,36 @@ def main() -> int:
          two_pass_ms=1e3 * two["times"][0],
          two_pass_launches=[two["k1"], two["k2"]],
          seconds_total=time.perf_counter() - t_start)
+    del model, step, cpu_model
 
-    rows.append(phase_k2_bwd())
-    rows[2]["launches"] = phase_train(bank)
+    bwd_rows = phase_k2_bwd()
+    train = phase_train(bank)
+    bf16 = phase_bf16(renderer, batch, cpu_out, gpu_out)
+    train_bf16 = phase_train_bf16(bank)
+    raft = phase_raft(renderer, batch)
+    raft_train = phase_raft_train(bank)
     emit(phase="done", seconds_total=time.perf_counter() - t_start)
 
+    # ``launches``: the row's own path (f32 or bf16); beside it every
+    # path's count, each read just after that path ran from 0
+    main_counts = (main_run["k1"], main_run["k2"], 0)
+    paths = {"main": main_counts, "bf16": (*bf16, 0), "raft": (*raft, 0),
+             "train": train, "train_bf16": train_bf16,
+             "raft_train": raft_train}
+
+    def by_path(i, names):
+        return {p: paths[p][i] for p in names}
+
+    k1_row.update(launches=main_run["k1"], launches_by_path=by_path(0, paths))
+    fwd_rows[0].update(launches=main_run["k2"], launches_by_path=by_path(
+        1, ("main", "raft", "train", "raft_train")))
+    fwd_rows[1].update(launches=bf16[1], launches_by_path=by_path(
+        1, ("bf16", "train_bf16")))
+    bwd_rows[0].update(launches=train[2], launches_by_path=by_path(
+        2, ("train", "raft_train")))
+    bwd_rows[1].update(launches=train_bf16[2],
+                       launches_by_path=by_path(2, ("train_bf16",)))
+    rows = [k1_row, *fwd_rows, *bwd_rows]
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -8,6 +8,12 @@ corners per axis with the JAX package's weights max(0, 1 − |t − i|) and
 zero weight off the level (grid_sample's zero padding, align_corners=True).
 ``grid_sample`` itself is not used: its normalise/unnormalise round trip
 moves the weights by up to ~1e-5 at 32×32 features.
+
+bf16 (the JAX package's bf16 path): the pyramid is accumulated, scaled and
+pooled in f32 and only its stored levels are rounded to bf16; the lookup
+of a bf16 level rounds the bilinear weights to bf16, sums the x taps in
+f32, rounds that to bf16, and sums the y taps in f32 (bf16 products are
+exact in f32). The lookup's output is f32 in both types.
 """
 from __future__ import annotations
 
@@ -18,14 +24,17 @@ import torch.nn.functional as F
 
 
 def correlation_pyramid(feat_render: torch.Tensor, feat_real: torch.Tensor,
-                        num_levels: int = 4) -> list[torch.Tensor]:
-    """<f_render[p], f_real[i, j]> / sqrt(C), avg-pooled 2×2 per level.
+                        num_levels: int = 4,
+                        dtype: torch.dtype | None = None) -> list[torch.Tensor]:
+    """<f_render[p], f_real[i, j]> / sqrt(C), avg-pooled 2×2 per level, in
+    f32 (features of another type are widened first), each level stored in
+    ``dtype`` (default f32).
 
     feat_render/feat_real: (N, C, H, W). Returns ``num_levels`` tensors
     (N, P, H/2^l, W/2^l)."""
     n, c, h, w = feat_render.shape
-    corr = torch.bmm(feat_render.reshape(n, c, h * w).transpose(1, 2),
-                     feat_real.reshape(n, c, h * w)).float()
+    corr = torch.bmm(feat_render.float().reshape(n, c, h * w).transpose(1, 2),
+                     feat_real.float().reshape(n, c, h * w))
     corr = (corr / math.sqrt(c)).reshape(n, h * w, h, w)
     pyramid = [corr]
     for _ in range(num_levels - 1):
@@ -33,6 +42,8 @@ def correlation_pyramid(feat_render: torch.Tensor, feat_real: torch.Tensor,
         hl, wl = prev.shape[-2:]
         pooled = F.avg_pool2d(prev.reshape(n * h * w, 1, hl, wl), 2)
         pyramid.append(pooled.reshape(n, h * w, hl // 2, wl // 2))
+    if dtype is not None:
+        pyramid = [p.to(dtype) for p in pyramid]
     return pyramid
 
 
@@ -56,9 +67,9 @@ def corr_lookup(pyramid: list[torch.Tensor], flow: torch.Tensor,
                 radius: int = 4) -> torch.Tensor:
     """Sample a (2r+1)² neighbourhood of every level at the flow targets.
 
-    flow (N, 2, H, W) at feature resolution. Returns (N, L·(2r+1)², H, W).
-    Tap channel (a, b) samples (x + d_a, y + d_b): the x offset is the
-    major tap axis, as in the reference checkpoints.
+    flow (N, 2, H, W) at feature resolution. Returns (N, L·(2r+1)², H, W)
+    in f32. Tap channel (a, b) samples (x + d_a, y + d_b): the x offset is
+    the major tap axis, as in the reference checkpoints.
     """
     n, _, h, w = flow.shape
     b = n * h * w
@@ -75,12 +86,19 @@ def corr_lookup(pyramid: list[torch.Tensor], flow: torch.Tensor,
         flat = corr.reshape(b, hl * wl)
         x_corners = _corners(cx / 2.0 ** lvl + d, wl)          # (B, Kx) each
         y_corners = _corners(cy / 2.0 ** lvl + d, hl)          # (B, Ky) each
+        low = corr.dtype if corr.dtype != torch.float32 else None
+        if low is not None:      # weights rounded to the level's type
+            x_corners = [(i, wt.to(low).float()) for i, wt in x_corners]
+            y_corners = [(i, wt.to(low).float()) for i, wt in y_corners]
         samp = 0.0
         for iy, wy in y_corners:
             row = 0.0            # Σ_x c[y, x]·wx, then Σ_y row·wy, as in JAX
             for ix, wx in x_corners:
                 idx = (iy[:, None, :] * wl + ix[:, :, None]).reshape(b, k * k)
-                row = row + flat.gather(1, idx).reshape(b, k, k) * wx[:, :, None]
+                row = row + (flat.gather(1, idx).reshape(b, k, k).float()
+                             * wx[:, :, None])
+            if low is not None:
+                row = row.to(low).float()
             samp = samp + row * wy[:, None, :]                  # (B, Kx, Ky)
         out.append(samp.reshape(n, h * w, k * k))
     return torch.cat(out, dim=-1).transpose(1, 2).reshape(n, -1, h, w)

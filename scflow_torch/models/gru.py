@@ -1,6 +1,8 @@
 """Convolutional GRU, 'SeqConv' variant (port of
 ``scflow_tpu/models/gru.py``): two chained GRU passes with (1, 5) then
 (5, 1) kernels. Parameter names follow the reference (``conv_z.{i}.conv``).
+With a compute ``dtype`` the convolutions run in it and the gates are
+computed on its tensors, as flax's ``ConvGRU(dtype=…)`` does.
 """
 from __future__ import annotations
 
@@ -14,12 +16,14 @@ _KERNELS = ((1, 5), (5, 1))
 
 class ConvGRU(nn.Module):
 
-    def __init__(self, h_channels: int = 128, x_channels: int = 256):
+    def __init__(self, h_channels: int = 128, x_channels: int = 256,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         cin = h_channels + x_channels
 
         def convs():
-            return nn.ModuleList([ConvBlock(cin, h_channels, kern, act=False)
+            return nn.ModuleList([ConvBlock(cin, h_channels, kern, act=False,
+                                            dtype=dtype)
                                   for kern in _KERNELS])
 
         self.conv_z, self.conv_r, self.conv_q = convs(), convs(), convs()

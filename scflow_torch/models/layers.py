@@ -5,6 +5,13 @@ Parameter names follow the reference torch modules (mmcv ``ConvModule``:
 ResNet ``BasicBlock``: ``conv1``/``{norm}1``/``conv2``/``{norm}2``/
 ``downsample``), which is the layout ``scflow_tpu``'s checkpoint converter
 reads. Convolutions pad by ``k // 2`` on each side as the flax modules do.
+
+``dtype`` is the compute dtype (``torch.bfloat16`` or None for the
+parameters' float32), as the flax modules' ``dtype``: parameters stay
+float32; a conv or dense layer casts its input, weight and bias to it and
+returns it; a norm computes its statistics and the normalisation in
+float32 and rounds once to it at the output (instance norm: to its
+input's type, which is the compute dtype).
 """
 from __future__ import annotations
 
@@ -15,9 +22,42 @@ from torch import nn
 from ..ops.fused_norm import instance_norm
 
 
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` that computes in ``dtype`` (flax ``nn.Conv(dtype=…)``):
+    input, weight and bias cast to it, output in it."""
+
+    def __init__(self, *args, dtype: torch.dtype | None = None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` that computes in ``dtype`` (flax ``nn.Dense(dtype=…)``)."""
+
+    def __init__(self, cin: int, cout: int,
+                 dtype: torch.dtype | None = None):
+        super().__init__(cin, cout)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
 class FusedInstanceNorm(nn.Module):
     """Instance norm with affine ``weight``/``bias``: the CUDA kernel on
-    every call on the card, its plain version on the CPU."""
+    every call on the card, its plain version on the CPU. Both take f32 or
+    bf16 and return the input's type (statistics in f32), so the compute
+    dtype reaches it through its input."""
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -29,6 +69,19 @@ class FusedInstanceNorm(nn.Module):
         return instance_norm(x, self.weight, self.bias, self.eps)
 
 
+class GroupNorm(nn.GroupNorm):
+    """``nn.GroupNorm`` computed in f32 (of the input's values) and rounded
+    once to the compute ``dtype`` (default: the input's)."""
+
+    def __init__(self, groups: int, channels: int, eps: float = 1e-5,
+                 dtype: torch.dtype | None = None):
+        super().__init__(groups, channels, eps=eps)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.float()).to(self.compute_dtype or x.dtype)
+
+
 class BatchNorm(nn.BatchNorm2d):
     """Batch norm that trains as flax's ``nn.BatchNorm(momentum=0.9)``.
 
@@ -38,12 +91,19 @@ class BatchNorm(nn.BatchNorm2d):
     moves ``running_mean``/``running_var`` by ``momentum`` (0.1) toward
     them, the biased variance included. An optional (N,) ``sample_mask``
     (> 0.5 counts) keeps padded samples out of the statistics; they are
-    still normalised."""
+    still normalised. Both modes compute in f32 and round once to the
+    compute ``dtype`` (default: the input's)."""
+
+    def __init__(self, channels: int, eps: float = 1e-5,
+                 momentum: float = 0.1, dtype: torch.dtype | None = None):
+        super().__init__(channels, eps=eps, momentum=momentum)
+        self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor,
                 sample_mask: torch.Tensor | None = None) -> torch.Tensor:
+        out_dtype = self.compute_dtype or x.dtype
         if not self.training:
-            return super().forward(x)
+            return super().forward(x.float()).to(out_dtype)
         xf = x.float()
         if sample_mask is None:
             mean = xf.mean(dim=(0, 2, 3))
@@ -61,18 +121,19 @@ class BatchNorm(nn.BatchNorm2d):
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = ((xf - mean[:, None, None]) * mul[:, None, None]
              + self.bias[:, None, None])
-        return y.to(x.dtype)
+        return y.to(out_dtype)
 
 
-def make_norm(kind: str, channels: int, gn_groups: int = 32) -> nn.Module:
+def make_norm(kind: str, channels: int, gn_groups: int = 32,
+              dtype: torch.dtype | None = None) -> nn.Module:
     """'in' | 'bn' | 'gn' norm with torch-default eps (BN uses its running
     statistics in eval mode, flax's batch statistics in train mode)."""
     if kind == "in":
         return FusedInstanceNorm(channels)
     if kind == "bn":
-        return BatchNorm(channels, eps=1e-5, momentum=0.1)
+        return BatchNorm(channels, eps=1e-5, momentum=0.1, dtype=dtype)
     if kind == "gn":
-        return nn.GroupNorm(gn_groups, channels, eps=1e-5)
+        return GroupNorm(gn_groups, channels, eps=1e-5, dtype=dtype)
     raise ValueError(f"unknown norm {kind!r}")
 
 
@@ -84,12 +145,12 @@ def apply_norm(norm: nn.Module, x: torch.Tensor,
     return norm(x)
 
 
-def conv2d(cin: int, cout: int, kernel, stride: int = 1,
-           bias: bool = True) -> nn.Conv2d:
+def conv2d(cin: int, cout: int, kernel, stride: int = 1, bias: bool = True,
+           dtype: torch.dtype | None = None) -> Conv2d:
     """Conv with flax's explicit ``k // 2`` padding per side."""
     kh, kw = (kernel, kernel) if isinstance(kernel, int) else kernel
-    return nn.Conv2d(cin, cout, (kh, kw), stride, padding=(kh // 2, kw // 2),
-                     bias=bias)
+    return Conv2d(cin, cout, (kh, kw), stride, padding=(kh // 2, kw // 2),
+                  bias=bias, dtype=dtype)
 
 
 class ConvBlock(nn.Module):
@@ -97,12 +158,12 @@ class ConvBlock(nn.Module):
 
     def __init__(self, cin: int, cout: int, kernel=3, stride: int = 1,
                  norm: str | None = None, act: bool = True,
-                 gn_groups: int = 32):
+                 gn_groups: int = 32, dtype: torch.dtype | None = None):
         super().__init__()
-        self.conv = conv2d(cin, cout, kernel, stride)
+        self.conv = conv2d(cin, cout, kernel, stride, dtype=dtype)
         self.norm = norm           # the norm module is named by its kind
         if norm:
-            self.add_module(norm, make_norm(norm, cout, gn_groups))
+            self.add_module(norm, make_norm(norm, cout, gn_groups, dtype))
         self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -115,17 +176,19 @@ class ConvBlock(nn.Module):
 class BasicBlock(nn.Module):
     """ResNet BasicBlock with reference names (``conv1``, ``in1``, …)."""
 
-    def __init__(self, cin: int, cout: int, stride: int = 1, norm: str = "in"):
+    def __init__(self, cin: int, cout: int, stride: int = 1, norm: str = "in",
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.abbr = norm
-        self.conv1 = conv2d(cin, cout, 3, stride)
-        self.add_module(f"{self.abbr}1", make_norm(norm, cout))
-        self.conv2 = conv2d(cout, cout, 3)
-        self.add_module(f"{self.abbr}2", make_norm(norm, cout))
+        self.conv1 = conv2d(cin, cout, 3, stride, dtype=dtype)
+        self.add_module(f"{self.abbr}1", make_norm(norm, cout, dtype=dtype))
+        self.conv2 = conv2d(cout, cout, 3, dtype=dtype)
+        self.add_module(f"{self.abbr}2", make_norm(norm, cout, dtype=dtype))
         self.downsample = None
         if stride != 1 or cin != cout:
-            self.downsample = nn.Sequential(conv2d(cin, cout, 1, stride),
-                                            make_norm(norm, cout))
+            self.downsample = nn.Sequential(
+                conv2d(cin, cout, 1, stride, dtype=dtype),
+                make_norm(norm, cout, dtype=dtype))
 
     def forward(self, x: torch.Tensor,
                 sample_mask: torch.Tensor | None = None) -> torch.Tensor:

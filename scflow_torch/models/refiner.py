@@ -1,13 +1,18 @@
-"""SCFlow refiner network (port of ``scflow_tpu/models/refiner.py:19-104``):
-a render/real feature encoder (one module, shared), a BN context encoder
-whose output splits into the tanh'd GRU state and the ReLU'd context, and
-the SCFlow decoder. Parameter names are the reference torch ones."""
+"""Refiner networks (port of ``scflow_tpu/models/refiner.py``).
+
+``SCFlowRefiner``: a render/real feature encoder (one module, shared), a
+BN context encoder whose output splits into the tanh'd GRU state and the
+ReLU'd context, and the SCFlow decoder; ``dtype`` is the compute dtype
+(bf16 or None for f32; parameters stay f32). ``RAFTRefiner``: the same
+encoders (f32) and the plain RAFT decoder; its pose comes from PnP on the
+flow (``models/flow_pose.py``). Parameter names are the reference torch
+ones."""
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from .decoder import SCFlowDecoder, SCFlowOutputs
+from .decoder import RAFTDecoder, SCFlowDecoder, SCFlowOutputs
 from .encoder import RAFTEncoder
 
 STRIDE = 8
@@ -18,16 +23,19 @@ class SCFlowRefiner(nn.Module):
     def __init__(self, num_class: int = 21, h_channels: int = 128,
                  cxt_channels: int = 128, feat_channels: int = 256,
                  num_levels: int = 4, radius: int = 4, iters: int = 8,
-                 image_size: tuple[int, int] = (256, 256)):
+                 image_size: tuple[int, int] = (256, 256),
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.h_channels = h_channels
-        self.render_encoder = RAFTEncoder(feat_channels, norm="in")
-        self.context = RAFTEncoder(h_channels + cxt_channels, norm="bn")
+        self.render_encoder = RAFTEncoder(feat_channels, norm="in",
+                                          dtype=dtype)
+        self.context = RAFTEncoder(h_channels + cxt_channels, norm="bn",
+                                   dtype=dtype)
         feat_hw = (image_size[0] // STRIDE, image_size[1] // STRIDE)
         self.decoder = SCFlowDecoder(
             feat_hw, num_levels=num_levels, radius=radius, iters=iters,
             num_class=num_class, h_channels=h_channels,
-            cxt_channels=cxt_channels)
+            cxt_channels=cxt_channels, dtype=dtype)
 
     @property
     def real_encoder(self) -> RAFTEncoder:
@@ -63,3 +71,64 @@ class SCFlowRefiner(nn.Module):
                                   sample_valid)
         return self.decoder(*feats, ref_rotation, ref_translation, depth, k,
                             label, iters=iters, lowres=lowres)
+
+
+def _nchw(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 3, 1, 2).contiguous()
+
+
+class RAFTRefiner(nn.Module):
+    """RAFT flow(+occlusion) refiner network: shared IN feature encoder, BN
+    context encoder on the render side, RAFT decoder; ``predict_mask``
+    adds the occlusion head."""
+
+    def __init__(self, h_channels: int = 128, cxt_channels: int = 128,
+                 feat_channels: int = 256, num_levels: int = 4,
+                 radius: int = 4, iters: int = 12, predict_mask: bool = True):
+        super().__init__()
+        self.h_channels = h_channels
+        self.render_encoder = RAFTEncoder(feat_channels, norm="in")
+        self.context = RAFTEncoder(h_channels + cxt_channels, norm="bn")
+        self.decoder = RAFTDecoder(num_levels=num_levels, radius=radius,
+                                   iters=iters, predict_mask=predict_mask,
+                                   h_channels=h_channels,
+                                   cxt_channels=cxt_channels)
+
+    @property
+    def real_encoder(self) -> RAFTEncoder:
+        """The real-image encoder shares the render encoder's weights."""
+        return self.render_encoder
+
+    def forward(self, render_images: torch.Tensor, real_images: torch.Tensor,
+                iters: int | None = None,
+                sample_valid: torch.Tensor | None = None):
+        """render/real images (N, H, W, 3) normalised → (flows (T, N, H, W,
+        2), occlusions (T, N, H, W, 1)).
+
+        Multiview broadcast: either side may be one unbatched (H, W, 3)
+        image; it is encoded once and its features broadcast against the
+        other side's batch (the context encoder then sees the one render,
+        without ``sample_valid``). ``sample_valid`` (N,) keeps padded
+        samples out of the context encoder's train-mode BN statistics."""
+        if render_images.dim() == 3 and real_images.dim() == 3:
+            raise ValueError("at most one side may be unbatched "
+                             "(multiview broadcast)")
+        if render_images.dim() == 3:
+            n = real_images.shape[0]
+            one = _nchw(render_images[None])
+            feat_render = self.render_encoder(one).expand(n, -1, -1, -1)
+            cxt = self.context(one).expand(n, -1, -1, -1)
+        else:
+            one = _nchw(render_images)
+            feat_render = self.render_encoder(one)
+            cxt = self.context(one, sample_valid)
+        if real_images.dim() == 3:
+            n = render_images.shape[0]
+            feat_real = self.real_encoder(_nchw(real_images[None])).expand(
+                n, -1, -1, -1)
+        else:
+            feat_real = self.real_encoder(_nchw(real_images))
+        h_feat, cxt_feat = torch.split(
+            cxt, [self.h_channels, cxt.shape[1] - self.h_channels], dim=1)
+        return self.decoder(feat_render, feat_real, torch.tanh(h_feat),
+                            torch.relu(cxt_feat), iters=iters)

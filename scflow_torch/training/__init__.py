@@ -6,4 +6,4 @@ from .steps import (build_model, clip_by_global_norm_,  # noqa: F401
                     device_normalize_images, make_eval_step,
                     make_multi_cycle_train_step, make_multi_pass_eval_step,
                     make_optimizer, make_train_step, onecycle_lr,
-                    render_at_pose, scflow_loss)
+                    raft_loss, render_at_pose, scflow_loss)

@@ -1,9 +1,9 @@
 """Configuration dataclasses for the port's inference and training paths
 (the fields of ``scflow_tpu/training/config.py`` that these paths read,
-with the same names and defaults). The model is the SCFlow family in
-float32 with a shared feature encoder, Basic net, ortho6d rotations and
-exp depth transform; fields with other values come with the slices that
-run them."""
+with the same names and defaults). The model is the SCFlow family or the
+RAFT flow(+occlusion) family with a shared feature encoder and Basic net;
+SCFlow with ortho6d rotations and exp depth transform, in float32 or
+bfloat16. Fields with other values come with the slices that run them."""
 from __future__ import annotations
 
 import dataclasses
@@ -11,6 +11,7 @@ import dataclasses
 
 @dataclasses.dataclass
 class ModelConfig:
+    family: str = "scflow"            # 'scflow' | 'raft_flow' | 'raft_flow_mask'
     num_class: int = 21
     feat_channels: int = 256
     h_channels: int = 128
@@ -21,6 +22,9 @@ class ModelConfig:
     test_iters: int = 8
     max_flow: float = 400.0
     filter_invalid_flow: bool = True
+    # compute dtype of the SCFlow conv/matmul stack: 'float32' | 'bfloat16'
+    # (parameters and all geometry/pose math stay float32; RAFT runs f32)
+    dtype: str = "float32"
     # carry the pose-induced flow at feature resolution during eval
     lowres_eval: bool = True
 

@@ -1,13 +1,16 @@
-"""Train and eval steps (port of the SCFlow paths of
-``scflow_tpu/training/steps.py``).
+"""Train and eval steps (port of ``scflow_tpu/training/steps.py``) for
+both model families: SCFlow (pose from the refiner's loop, f32 or bf16)
+and RAFT flow(+occlusion) (pose from RANSAC-EPnP on the last flow).
 
-Eval: normalise → render → refine → last-iteration pose.
+Eval: normalise → render → refine → last-iteration pose (RAFT: flow →
+``solve_pose_from_flow`` with a generator seeded 0 on every call, the JAX
+package's fixed key, and ``pnp_valid``).
 ``make_eval_step`` and ``make_multi_pass_eval_step`` return plain functions
 of one batch dict that run under ``torch.inference_mode()`` on the device
 they were built for.
 
-Train: render at the reference pose → ``scflow_loss`` → backward → the
-optax recipe's global-norm clip and AdamW with the linear OneCycle
+Train: render at the reference pose → ``scflow_loss`` (RAFT:
+``raft_loss``) → backward → the optax recipe's global-norm clip and AdamW with the linear OneCycle
 schedule. ``make_train_step`` and ``make_multi_cycle_train_step`` update
 the model and the optimizer in place and return the step's metrics.
 
@@ -29,9 +32,10 @@ from torch import nn
 from ..device import resolve_device
 from ..geometry.flow import filter_flow_by_mask, flow_from_pose_and_depth
 from ..losses import sequence_flow_loss, sequence_mask_loss, sequence_pose_loss
+from ..models.flow_pose import solve_pose_from_flow
 from ..models.heads import identity_rotation_bias
 from ..models.layers import FusedInstanceNorm
-from ..models.refiner import SCFlowRefiner
+from ..models.refiner import RAFTRefiner, SCFlowRefiner
 from ..rendering.renderer import Renderer
 from .config import Config, OptimConfig
 from .points_bank import PointsBank
@@ -43,8 +47,8 @@ POSE_OUT_SCALE = 0.01
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded init on the CPU: conv/linear weights N(0, 1/fan_in), biases 0,
-    norms at identity (BN running stats 0/1), pose-head rotation bias at
-    the identity rotation."""
+    norms at identity (BN running stats 0/1), an SCFlow pose-head rotation
+    bias at the identity rotation."""
     with torch.no_grad():
         for name, m in model.named_modules():
             if isinstance(m, (nn.Conv2d, nn.Linear)):
@@ -61,23 +65,44 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                 m.bias.zero_()
                 if isinstance(m, nn.BatchNorm2d):
                     m.reset_running_stats()
-        head = model.decoder.pose_pred
-        head.rotation_pred.bias.copy_(identity_rotation_bias(head.num_class))
+        if isinstance(model, SCFlowRefiner):
+            head = model.decoder.pose_pred
+            head.rotation_pred.bias.copy_(
+                identity_rotation_bias(head.num_class))
+
+
+_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
 
 def build_model(cfg: Config, device: str | torch.device = "cuda",
-                seed: int = 0) -> SCFlowRefiner:
-    """SCFlowRefiner for ``cfg`` (float32), initialised from ``seed`` with a ``torch.Generator`` on the CPU, on ``device`` in
-    eval mode. Real weights come in through ``weights.load_jax_variables``
-    or ``load_state_dict``."""
+                seed: int = 0) -> SCFlowRefiner | RAFTRefiner:
+    """The refiner of ``cfg.model.family``: ``SCFlowRefiner`` ('scflow', in
+    ``cfg.model.dtype``) or ``RAFTRefiner`` ('raft_flow', and
+    'raft_flow_mask' with the occlusion head; float32 whatever the dtype,
+    as in the JAX package), initialised from ``seed`` with a
+    ``torch.Generator`` on the CPU, on ``device`` in eval mode. Real
+    weights come in through ``weights.load_jax_variables`` or
+    ``load_state_dict``."""
     dev = resolve_device(device)
     m = cfg.model
+    if m.dtype not in _DTYPES:
+        raise ValueError(f"unknown dtype {m.dtype!r}")
     with torch.device("meta"):
-        model = SCFlowRefiner(
-            num_class=m.num_class, h_channels=m.h_channels,
-            cxt_channels=m.cxt_channels, feat_channels=m.feat_channels,
-            num_levels=m.num_levels, radius=m.radius, iters=m.iters,
-            image_size=tuple(cfg.render.image_size))
+        if m.family in ("raft_flow", "raft_flow_mask"):
+            model = RAFTRefiner(
+                h_channels=m.h_channels, cxt_channels=m.cxt_channels,
+                feat_channels=m.feat_channels, num_levels=m.num_levels,
+                radius=m.radius, iters=m.iters,
+                predict_mask=m.family == "raft_flow_mask")
+        elif m.family == "scflow":
+            model = SCFlowRefiner(
+                num_class=m.num_class, h_channels=m.h_channels,
+                cxt_channels=m.cxt_channels, feat_channels=m.feat_channels,
+                num_levels=m.num_levels, radius=m.radius, iters=m.iters,
+                image_size=tuple(cfg.render.image_size),
+                dtype=_DTYPES[m.dtype])
+        else:
+            raise ValueError(f"unknown model family {m.family!r}")
     model.to_empty(device="cpu")
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(dev).eval()
@@ -112,8 +137,8 @@ def _to_device(v, dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(v)).to(dev)
 
 
-def _eval_step_core(model: SCFlowRefiner, renderer: Renderer, cfg: Config,
-                    dev: torch.device):
+def _eval_step_core(model: SCFlowRefiner | RAFTRefiner, renderer: Renderer,
+                    cfg: Config, dev: torch.device):
 
     @torch.inference_mode()
     def eval_step(batch: dict) -> dict:
@@ -124,6 +149,22 @@ def _eval_step_core(model: SCFlowRefiner, renderer: Renderer, cfg: Config,
             renderer, batch["ref_rotations"], batch["ref_translations"],
             batch["k"], labels, cfg.data.normalize_mean,
             cfg.data.normalize_std)
+        if isinstance(model, RAFTRefiner):
+            flows, masks = model(rendered, real, iters=cfg.model.test_iters)
+            solved = solve_pose_from_flow(
+                torch.Generator(device=dev).manual_seed(0), flows[-1],
+                masks[-1][..., 0], depth, batch["ref_rotations"],
+                batch["ref_translations"], batch["k"])
+            return {
+                "rotations": solved["rotations"],
+                "translations": solved["translations"],
+                "masks": masks[-1],
+                "flow": flows[-1],
+                "depth": depth,
+                "ref_rotations": batch["ref_rotations"],
+                "ref_translations": batch["ref_translations"],
+                "pnp_valid": solved["valid"],
+            }
         outputs = model(rendered, real, batch["ref_rotations"],
                         batch["ref_translations"], depth, batch["k"], labels,
                         iters=cfg.model.test_iters,
@@ -141,10 +182,11 @@ def _eval_step_core(model: SCFlowRefiner, renderer: Renderer, cfg: Config,
     return eval_step
 
 
-def make_eval_step(model: SCFlowRefiner, renderer: Renderer, cfg: Config,
-                   device: str | torch.device = "cuda"):
+def make_eval_step(model: SCFlowRefiner | RAFTRefiner, renderer: Renderer,
+                   cfg: Config, device: str | torch.device = "cuda"):
     """Inference step on ``device``: render at the reference pose, refine,
-    return the last iteration's pose. Moves ``model`` (in place) and the
+    return the last iteration's pose (RAFT: the PnP pose of the last flow,
+    the reference pose where PnP fails, and ``pnp_valid``). Moves ``model`` (in place) and the
     renderer's mesh bank to the device; raises if CUDA is asked for and
     absent."""
     dev = resolve_device(device)
@@ -154,7 +196,8 @@ def make_eval_step(model: SCFlowRefiner, renderer: Renderer, cfg: Config,
     return _eval_step_core(model, renderer, cfg, dev)
 
 
-def make_multi_pass_eval_step(model: SCFlowRefiner, renderer: Renderer,
+def make_multi_pass_eval_step(model: SCFlowRefiner | RAFTRefiner,
+                              renderer: Renderer,
                               cfg: Config, passes: int = 2,
                               device: str | torch.device = "cuda"):
     """Refine, re-render at the refined pose, refine again (``passes``
@@ -227,6 +270,26 @@ def _updates_done(optimizer: torch.optim.Optimizer) -> int:
     return 0
 
 
+def _loss_targets(batch: dict, cfg: Config):
+    """(normalised real images, GT flow, occlusion target) of a train
+    batch: GT flow from the reference and GT poses and the rendered depth,
+    filtered by the GT mask; the occlusion target is the raw channel sum of
+    the GT flow below ``max_flow``, as the reference computes it."""
+    max_flow = cfg.model.max_flow
+    real = device_normalize_images(batch["real_images"], cfg)
+    gt_masks = batch.get("gt_masks")
+    if gt_masks is not None and gt_masks.dtype == torch.uint8:
+        gt_masks = gt_masks.float()
+    gt_flow = flow_from_pose_and_depth(
+        batch["ref_rotations"], batch["ref_translations"],
+        batch["gt_rotations"], batch["gt_translations"],
+        batch["rendered_depths"], batch["k"], invalid_num=max_flow)
+    if cfg.model.filter_invalid_flow and gt_masks is not None:
+        gt_flow = filter_flow_by_mask(gt_flow, gt_masks, invalid_num=max_flow)
+    gt_occ = (gt_flow.sum(-1) < max_flow).float()
+    return real, gt_flow, gt_occ
+
+
 def scflow_loss(model: SCFlowRefiner, batch: dict, points_bank: PointsBank,
                 cfg: Config, train: bool = True):
     """Full SCFlow training loss: (loss, metrics, outputs).
@@ -235,15 +298,9 @@ def scflow_loss(model: SCFlowRefiner, batch: dict, points_bank: PointsBank,
     rendered_depths and rendered_masks at the reference pose. ``train``
     sets the model's mode: in train mode the context encoder's BN uses
     batch statistics (excluding samples whose ``sample_valid`` is 0) and
-    updates its running statistics in place. GT flow comes from the
-    reference and GT poses and the rendered depth, filtered by the GT mask;
-    the occlusion target is the raw channel sum of the GT flow below
-    ``max_flow``, as the reference computes it."""
-    max_flow = cfg.model.max_flow
-    real = device_normalize_images(batch["real_images"], cfg)
-    gt_masks = batch.get("gt_masks")
-    if gt_masks is not None and gt_masks.dtype == torch.uint8:
-        gt_masks = gt_masks.float()
+    updates its running statistics in place. Targets: see
+    :func:`_loss_targets`."""
+    real, gt_flow, gt_occ = _loss_targets(batch, cfg)
     sample_valid = batch.get("sample_valid")
     labels = batch["labels"].long()
     model.train(train)
@@ -251,13 +308,6 @@ def scflow_loss(model: SCFlowRefiner, batch: dict, points_bank: PointsBank,
                     batch["ref_translations"], batch["rendered_depths"],
                     batch["k"], labels, iters=cfg.model.iters,
                     sample_valid=sample_valid)
-
-    gt_flow = flow_from_pose_and_depth(
-        batch["ref_rotations"], batch["ref_translations"],
-        batch["gt_rotations"], batch["gt_translations"],
-        batch["rendered_depths"], batch["k"], invalid_num=max_flow)
-    if cfg.model.filter_invalid_flow and gt_masks is not None:
-        gt_flow = filter_flow_by_mask(gt_flow, gt_masks, invalid_num=max_flow)
 
     lc = cfg.loss
     points, point_valid, symmetric, diameters = points_bank.gather(labels)
@@ -269,9 +319,8 @@ def scflow_loss(model: SCFlowRefiner, batch: dict, points_bank: PointsBank,
         disentangle_z=lc.pose_disentangle_z, sample_weight=sample_valid)
     loss_flow, seq_flow = sequence_flow_loss(
         outputs.flow_from_pred, gt_flow, batch["rendered_masks"],
-        gamma=lc.gamma, loss_weight=lc.flow_weight, max_flow=max_flow,
+        gamma=lc.gamma, loss_weight=lc.flow_weight, max_flow=cfg.model.max_flow,
         sample_weight=sample_valid)
-    gt_occ = (gt_flow.sum(-1) < max_flow).float()
     loss_mask, seq_mask = sequence_mask_loss(
         outputs.masks[..., 0], gt_occ, gamma=lc.gamma,
         loss_weight=lc.mask_weight, sample_weight=sample_valid)
@@ -281,6 +330,35 @@ def scflow_loss(model: SCFlowRefiner, batch: dict, points_bank: PointsBank,
                "loss_mask": loss_mask, "seq_pose_loss": seq_pose,
                "seq_flow_loss": seq_flow, "seq_mask_loss": seq_mask}
     return loss, metrics, outputs
+
+
+def raft_loss(model: RAFTRefiner, batch: dict, points_bank: PointsBank,
+              cfg: Config, train: bool = True):
+    """RAFT training loss: (loss, metrics, (flows, occlusions)) — the
+    sequence flow L1 and the occlusion-mask L1 against the targets of
+    :func:`_loss_targets` (``loss_pose`` is 0). Without the occlusion head
+    the occlusions are zeros and their loss is still taken, as in the JAX
+    package. ``points_bank`` is unused (the signature is
+    :func:`scflow_loss`'s); ``batch`` and ``train`` as there."""
+    real, gt_flow, gt_occ = _loss_targets(batch, cfg)
+    sample_valid = batch.get("sample_valid")
+    model.train(train)
+    flows, masks = model(batch["rendered_images"], real,
+                         sample_valid=sample_valid)
+    lc = cfg.loss
+    loss_flow, seq_flow = sequence_flow_loss(
+        flows, gt_flow, batch["rendered_masks"], gamma=lc.gamma,
+        loss_weight=lc.flow_weight, max_flow=cfg.model.max_flow,
+        sample_weight=sample_valid)
+    loss_mask, seq_mask = sequence_mask_loss(
+        masks[..., 0], gt_occ, gamma=lc.gamma, loss_weight=lc.mask_weight,
+        sample_weight=sample_valid)
+    loss = loss_flow + loss_mask
+    metrics = {"loss_flow": loss_flow, "seq_flow_loss": seq_flow,
+               "loss_pose": torch.zeros((), device=loss.device),
+               "loss_mask": loss_mask, "seq_mask_loss": seq_mask,
+               "loss": loss}
+    return loss, metrics, (flows, masks)
 
 
 def _train_cycle(model, renderer, points_bank, cfg, optimizer, batch):
@@ -293,8 +371,9 @@ def _train_cycle(model, renderer, points_bank, cfg, optimizer, batch):
             cfg.data.normalize_std)
     full = dict(batch, rendered_images=rendered, rendered_depths=depth,
                 rendered_masks=mask)
-    loss, metrics, outputs = scflow_loss(model, full, points_bank, cfg,
-                                         train=True)
+    loss_fn = raft_loss if isinstance(model, RAFTRefiner) else scflow_loss
+    loss, metrics, outputs = loss_fn(model, full, points_bank, cfg,
+                                     train=True)
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
     grads = [p.grad for g in optimizer.param_groups for p in g["params"]
@@ -316,14 +395,14 @@ def _train_setup(model, renderer, points_bank, device):
     return dev, renderer, points_bank.to(dev)
 
 
-def make_train_step(model: SCFlowRefiner, renderer: Renderer,
+def make_train_step(model: SCFlowRefiner | RAFTRefiner, renderer: Renderer,
                     points_bank: PointsBank, cfg: Config,
                     optimizer: torch.optim.Optimizer,
                     device: str | torch.device = "cuda"):
     """Train step on ``device``: render at the reference pose (no grad),
-    ``scflow_loss`` in train mode, backward, clip, one AdamW update at the
-    schedule's learning rate. The model (moved to the device in place) and
-    the optimizer (built by :func:`make_optimizer` over its parameters)
+    ``scflow_loss`` (RAFT: ``raft_loss``) in train mode, backward, clip,
+    one AdamW update at the schedule's learning rate. The model (moved to
+    the device in place) and the optimizer (built by :func:`make_optimizer` over its parameters)
     change in place; the step returns its metrics, ``grad_norm`` (before the
     clip) among them. Raises if CUDA is asked for and absent."""
     dev, renderer, points_bank = _train_setup(model, renderer, points_bank,
@@ -345,7 +424,11 @@ def make_multi_cycle_train_step(model: SCFlowRefiner, renderer: Renderer,
                                 device: str | torch.device = "cuda"):
     """Multi-cycle training: ``cycles`` train cycles per call, each one
     update; the next cycle renders at the previous cycle's detached
-    last-iteration pose. Metrics: ``cycle{i}_loss`` and the last cycle's."""
+    last-iteration pose. Metrics: ``cycle{i}_loss`` and the last cycle's.
+    SCFlow only: a RAFT model has no in-loop pose (ValueError)."""
+    if isinstance(model, RAFTRefiner):
+        raise ValueError("multi-cycle training needs in-loop poses "
+                         "(SCFlow family only)")
     dev, renderer, points_bank = _train_setup(model, renderer, points_bank,
                                               device)
 

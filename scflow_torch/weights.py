@@ -7,7 +7,10 @@ flax path by the rules below — the inverse of the JAX package's torch
 checkpoint converter. Conv kernels go HWIO → OIHW, dense kernels are
 transposed, the pose head's first FC input goes from the flax HWC flatten
 to the torch CHW flatten, and BN ``mean``/``var`` become
-``running_mean``/``running_var``.
+``running_mean``/``running_var``. In a ``RAFTRefiner`` ``decoder.mask_pred``
+is the convex-upsample weight head (flax ``up_mask_head``) and
+``decoder.occlusion_pred`` the occlusion head (``occ_head``); it has no
+pose head.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import torch
 from torch import nn
 
 from .models.layers import FusedInstanceNorm
+from .models.refiner import RAFTRefiner
 
 _ENC = r"(render_encoder|context)"
 _IT = "decoder/iteration"
@@ -46,12 +50,21 @@ _RULES = [(re.compile(p), r) for p, r in (
     (r"decoder\.pose_pred\.(rotation|translation)_pred",
      rf"{_IT}/pose_head/\1_pred"),
 )]
+# RAFT heads, matched before _RULES (whose mask_pred is SCFlow's mask head)
+_RAFT_RULES = [(re.compile(p), r) for p, r in (
+    (r"decoder\.mask_pred\.layers\.(\d)\.conv", rf"{_IT}/up_mask_head/conv\1/conv"),
+    (r"decoder\.mask_pred\.predict_layer", rf"{_IT}/up_mask_head/predict"),
+    (r"decoder\.occlusion_pred\.layers\.(\d)\.conv",
+     rf"{_IT}/occ_head/conv\1/conv"),
+    (r"decoder\.occlusion_pred\.predict_layer", rf"{_IT}/occ_head/predict"),
+)]
 _FC0 = "decoder.pose_pred.fc_layers.0.0"
 
 
-def jax_path(module_name: str) -> str | None:
-    """Flax path ('a/b/c') of the port module named ``module_name``."""
-    for pattern, repl in _RULES:
+def jax_path(module_name: str, raft: bool = False) -> str | None:
+    """Flax path ('a/b/c') of the port module named ``module_name`` in an
+    SCFlow refiner, or with ``raft`` in a RAFT refiner."""
+    for pattern, repl in (_RAFT_RULES if raft else []) + _RULES:
         if pattern.fullmatch(module_name):
             return pattern.sub(repl, module_name)
     return None
@@ -69,8 +82,8 @@ def _flatten(tree: dict, prefix: str = "") -> dict:
 
 
 def load_jax_variables(model: nn.Module, variables: dict) -> None:
-    """Fill ``model`` (an ``SCFlowRefiner``) from flax ``variables`` in
-    place. Raises if a port tensor gets no value, a flax leaf goes unused,
+    """Fill ``model`` (an ``SCFlowRefiner`` or ``RAFTRefiner``) from flax
+    ``variables`` in place. Raises if a port tensor gets no value, a flax leaf goes unused,
     or a shape disagrees."""
     params = _flatten(variables.get("params", {}))
     stats = _flatten(variables.get("batch_stats", {}))
@@ -81,11 +94,12 @@ def load_jax_variables(model: nn.Module, variables: dict) -> None:
         return tree[path]
 
     loaded = {}
+    raft = isinstance(model, RAFTRefiner)
     for name, m in model.named_modules():
         if not isinstance(m, (nn.Conv2d, nn.Linear, nn.BatchNorm2d,
                               nn.GroupNorm, FusedInstanceNorm)):
             continue
-        path = jax_path(name)
+        path = jax_path(name, raft)
         if path is None:
             raise KeyError(f"no flax path for port module {name!r}")
         vals = {}
@@ -145,11 +159,12 @@ def to_jax_variables(model: nn.Module, grad: bool = False) -> dict:
     port's parameters or, with ``grad=True``, from their ``.grad`` (which
     must all be set). ``batch_stats`` are the BN running statistics."""
     params, stats = {}, {}
+    raft = isinstance(model, RAFTRefiner)
     for name, m in model.named_modules():
         if not isinstance(m, (nn.Conv2d, nn.Linear, nn.BatchNorm2d,
                               nn.GroupNorm, FusedInstanceNorm)):
             continue
-        path = jax_path(name)
+        path = jax_path(name, raft)
         if path is None:
             raise KeyError(f"no flax path for port module {name!r}")
 

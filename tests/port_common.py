@@ -36,6 +36,20 @@ def jax_refiner_variables(num_class: int = NUM_CLASS, image=IMAGE,
     return model, cfg, perturb(jax.tree.map(np.asarray, variables), seed)
 
 
+def jax_raft_variables(family: str = "raft_flow_mask", image=IMAGE,
+                       iters: int = 3, seed: int = 0):
+    """(JAX RAFTRefiner, its config, numpy variables) for ``family`` at full
+    channel widths, init-constant leaves replaced by seeded noise."""
+    from scflow_tpu.training import Config, ModelConfig, build_model
+
+    cfg = Config(model=ModelConfig(family=family, iters=iters,
+                                   test_iters=iters))
+    model = build_model(cfg)
+    x = jnp.zeros((2, *image, 3))
+    variables = jax.jit(model.init)(jax.random.PRNGKey(seed), x, x)
+    return model, cfg, perturb(jax.tree.map(np.asarray, variables), seed)
+
+
 def perturb(variables: dict, seed: int = 0) -> dict:
     """Seeded noise on the leaves the flax init leaves constant, so the
     bridge and the affine/statistics paths are exercised: norm scales near
@@ -67,14 +81,17 @@ def perturb(variables: dict, seed: int = 0) -> dict:
 
 
 def port_refiner(variables: dict, num_class: int = NUM_CLASS, image=IMAGE,
-                 iters: int = 3, lowres_eval: bool = True):
-    """(port SCFlowRefiner on the CPU with the bridged weights, its config)."""
+                 iters: int = 3, lowres_eval: bool = True,
+                 family: str = "scflow"):
+    """(port refiner of ``family`` on the CPU with the bridged weights, its
+    config)."""
     from scflow_torch.training import (Config, ModelConfig, RenderConfig,
                                        build_model)
     from scflow_torch.weights import load_jax_variables
 
-    cfg = Config(model=ModelConfig(num_class=num_class, iters=iters,
-                                   test_iters=iters, lowres_eval=lowres_eval),
+    cfg = Config(model=ModelConfig(family=family, num_class=num_class,
+                                   iters=iters, test_iters=iters,
+                                   lowres_eval=lowres_eval),
                  render=RenderConfig(image_size=image))
     model = build_model(cfg, device="cpu")
     load_jax_variables(model, variables)

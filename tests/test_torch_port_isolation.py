@@ -62,7 +62,10 @@ def test_entry_points_refuse_missing_gpu(monkeypatch):
 
     cfg = Config(model=ModelConfig(num_class=2),
                  render=RenderConfig(image_size=(64, 64)))
+    raft_cfg = Config(model=ModelConfig(family="raft_flow_mask", iters=2),
+                      render=RenderConfig(image_size=(64, 64)))
     model = build_model(cfg, device="cpu")
+    raft = build_model(raft_cfg, device="cpu")
     bank = make_test_meshes(2, subdivisions=1, device="cpu")
     renderer = Renderer(bank, image_size=(64, 64))
     points = build_points_bank(bank, num_points=8)
@@ -75,7 +78,12 @@ def test_entry_points_refuse_missing_gpu(monkeypatch):
                  lambda: make_multi_cycle_train_step(model, renderer, points,
                                                      cfg, opt),
                  lambda: build_model(cfg),
+                 lambda: build_model(raft_cfg),
+                 lambda: make_eval_step(raft, renderer, raft_cfg),
+                 lambda: make_train_step(raft, renderer, points, raft_cfg,
+                                         opt),
                  lambda: make_test_meshes(2, subdivisions=1)):
         with pytest.raises(RuntimeError, match="no CUDA GPU"):
             call()
     assert next(model.parameters()).device.type == "cpu"
+    assert next(raft.parameters()).device.type == "cpu"

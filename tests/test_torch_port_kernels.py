@@ -279,3 +279,77 @@ def test_synthetic_batch_same_on_both_devices(dev):
             assert ((got - v).abs() > 1e-3).float().mean() < 0.01, k
         else:                                      # poses drawn on the CPU
             assert torch.equal(got, v), k
+
+
+def _small_batch(dev_renderer, n=2):
+    from scflow_torch.data import synthetic_batch
+
+    return synthetic_batch(torch.Generator().manual_seed(3), dev_renderer, n)
+
+
+def _port_setup(device, **model):
+    from scflow_torch.training import (Config, ModelConfig, RenderConfig,
+                                       build_model)
+
+    cfg = Config(model=ModelConfig(num_class=3, iters=2, test_iters=2,
+                                   **model),
+                 render=RenderConfig(image_size=(64, 64)))
+    renderer = Renderer(make_test_meshes(3, subdivisions=2, radius=20.0,
+                                         device=device), image_size=(64, 64))
+    return build_model(cfg, device=device, seed=0), cfg, renderer
+
+
+def test_bf16_eval_step_card_vs_cpu(dev):
+    """The bf16 eval step (64², 3 classes, 2 samples) on the card against
+    the CPU: poses within 3× the CPU's own bf16-vs-f32 gap, every K2 input
+    bf16."""
+    from scflow_torch.training import make_eval_step
+
+    outs = {}
+    batch = None
+    for device, dtype in (("cpu", "float32"), ("cpu", "bfloat16"),
+                          (dev, "bfloat16")):
+        model, cfg, renderer = _port_setup(device, dtype=dtype)
+        if batch is None:
+            batch = _small_batch(renderer)
+        before = instance_norm_fwd.launches
+        outs[(str(device), dtype)] = {
+            k: v.cpu() for k, v in make_eval_step(model, renderer, cfg,
+                                                  device=device)(batch).items()}
+        if device != "cpu":
+            assert instance_norm_fwd.launches - before == 30
+    cpu32, cpu16 = outs[("cpu", "float32")], outs[("cpu", "bfloat16")]
+    card16 = outs[(str(dev), "bfloat16")]
+    for key in ("rotations", "translations"):
+        gap = (cpu16[key] - cpu32[key]).abs().max()
+        assert gap > 0, key
+        assert (card16[key] - cpu16[key]).abs().max() <= 3 * gap, key
+
+
+@pytest.mark.parametrize("family", ["raft_flow_mask", "raft_flow"])
+def test_raft_network_card_vs_cpu(dev, family):
+    """The RAFT network (64², 3 iterations, 2 samples) on the card against
+    the CPU on the same rendered and real images (the CPU's render): flows
+    rtol/atol 2e-3, occlusions atol 1e-3 (the CPU tests' bounds against
+    JAX); the eval step on the card launches K1 once and K2 30 times."""
+    from scflow_torch.training import (device_normalize_images,
+                                       make_eval_step, render_at_pose)
+
+    model, cfg, renderer = _port_setup("cpu", family=family)
+    batch = _small_batch(renderer)
+    with torch.no_grad():
+        rendered, _, _ = render_at_pose(
+            renderer, batch["ref_rotations"], batch["ref_translations"],
+            batch["k"], batch["labels"].long(), cfg.data.normalize_mean,
+            cfg.data.normalize_std)
+        real = device_normalize_images(batch["real_images"], cfg)
+        cpu = model(rendered, real)
+        card_model, _, card_renderer = _port_setup(dev, family=family)
+        card = card_model(rendered.to(dev), real.to(dev))
+    torch.testing.assert_close(card[0].cpu(), cpu[0], rtol=2e-3, atol=2e-3)
+    torch.testing.assert_close(card[1].cpu(), cpu[1], rtol=0, atol=1e-3)
+    k1, k2 = rf.rasterize_tiles.launches, instance_norm_fwd.launches
+    out = make_eval_step(card_model, card_renderer, cfg, device=dev)(batch)
+    assert rf.rasterize_tiles.launches - k1 == 1
+    assert instance_norm_fwd.launches - k2 == 30
+    assert torch.isfinite(out["rotations"]).all()

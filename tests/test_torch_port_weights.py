@@ -116,3 +116,34 @@ def test_to_jax_variables_reads_gradients(bridged):
             assert v.shape == values[k].shape and len(np.unique(v)) == 1, k
     finally:
         model.zero_grad(set_to_none=True)
+
+
+@pytest.mark.parametrize("family", ["raft_flow_mask", "raft_flow"])
+def test_raft_bridge(family):
+    """RAFT: ``load_jax_variables`` then ``to_jax_variables`` gives back a
+    flax ``RAFTRefiner``'s variables bit for bit (``mask_pred`` is the
+    576-channel ``up_mask_head``, ``occlusion_pred`` the ``occ_head``), and
+    the JAX package's converter (``family="raft"``) reads the port's
+    ``state_dict`` with nothing missing or unused."""
+    from port_common import jax_raft_variables
+    from scflow_torch.weights import to_jax_variables
+
+    _, _, variables = jax_raft_variables(family)
+    model, _ = port_refiner(variables, family=family)
+    assert model.decoder.mask_pred.predict_layer.out_channels == 576
+    assert (model.decoder.occlusion_pred is not None) == (
+        family == "raft_flow_mask")
+    back = to_jax_variables(model)
+    for col in variables:
+        want = flatten_dict(variables[col], sep="/")
+        got = flatten_dict(back[col], sep="/")
+        assert set(got) == set(want), col
+        for k, v in want.items():
+            assert got[k].dtype == v.dtype and np.array_equal(got[k], v), k
+    converted = convert_torch_checkpoint(model.state_dict(), family="raft")
+    merged, report = merge_converted(variables, converted, allow_missing=False)
+    assert not report["missing"] and not report["unused"]
+    for col in variables:
+        for k, v in flatten_dict(variables[col], sep="/").items():
+            assert np.array_equal(np.asarray(flatten_dict(
+                merged[col], sep="/")[k]), v), f"{col}/{k}"
