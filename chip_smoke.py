@@ -35,6 +35,17 @@ Phases (each prints one JSON line; any failed check raises):
           statistics, step time, peak memory and one profiled step's top
           kernels; the loss and gradients of 2 samples against the port on
           the CPU; one 2-cycle step.
+  trainer ``python -m scflow_torch.train --synthetic`` through
+          ``scflow_torch.train.main`` at the train phase's width (batch 16,
+          256², ``make_test_meshes(21, subdivisions=2)``, 8 iterations,
+          f32): 6 fit steps with the on-device ADD(-S) eval and panels
+          every 3; fit-step time beside the train phase's, eval, panel and
+          checkpoint times, launches per train step (K1 1, K2 30 and 30);
+          the JSONL log, checkpoint steps [6], the panel PNG's header and
+          the TB records' CRCs; a fresh Trainer's ``resume`` restores every
+          tensor bit for bit and its next step's loss is bit-equal; the
+          eval of 2 samples on the card and on the CPU; ``predict`` equal
+          to the bare eval step.
   bf16    the main path's eval step with ``dtype="bfloat16"``: launches
           per step (K1 1, K2 30, every K2 input bf16), step time, frames/s,
           peak memory; the card's bf16 poses of 2 samples within 3× the
@@ -97,6 +108,14 @@ RAFT_ITERS = 12
 RAFT_STEPS, RAFT_TRAIN_STEPS = 5, 3
 RAFT_FLOW_TOL = dict(rtol=2e-3, atol=2e-3)
 RAFT_OCC_TOL = dict(rtol=0.0, atol=1e-3)
+# trainer: fit steps, eval and panel interval; card vs CPU ADD(-S) errors
+TRAINER_STEPS, TRAINER_EVERY = 6, 3
+EVAL_ERR_RTOL = 1e-3
+# a step after resume, live vs restored state: the loss is bit-equal (a
+# deterministic forward); cuDNN's backward may sum in another order, so
+# the parameters are held to Adam's step bound (2.5 lr per element) and
+# their difference to 0.1 of the update's norm
+RESUME_LR_MULT, RESUME_UPDATE_RTOL = 2.5, 0.1
 
 
 def emit(**fields) -> None:
@@ -680,6 +699,285 @@ def phase_train(bank) -> tuple:
          two_cycle={"ms": 1e3 * mc_s, "launches": list(mc_counts),
                     "cycle0_loss": mc["cycle0_loss"].item(),
                     "cycle1_loss": mc["cycle1_loss"].item()})
+    return launches, out["step_ms_median"]
+
+
+class Timed:
+    """Wraps functions so each call is timed between two device syncs,
+    with its launches of K1, the K2 forward and backward:
+    ``records[name]`` is a list of (start, end, launches)."""
+
+    def __init__(self):
+        self.records: dict[str, list] = {}
+
+    def __call__(self, name: str, fn):
+        import torch
+
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            before, t0 = counts(), time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            self.records.setdefault(name, []).append((
+                t0, time.perf_counter(),
+                tuple(a - b for a, b in zip(counts(), before))))
+            return out
+        return timed
+
+    def ms(self, name: str) -> list:
+        return [1e3 * (t1 - t0) for t0, t1, _ in self.records[name]]
+
+
+def read_tb_records(path: str) -> int:
+    """The number of TFRecords in a TensorBoard event file, each length
+    and payload checked against its masked CRC32C."""
+    import struct
+
+    from scflow_torch.utils.tb_writer import _masked_crc
+
+    n = 0
+    with open(path, "rb") as f:
+        while header := f.read(8):
+            (length,) = struct.unpack("<Q", header)
+            (hcrc,) = struct.unpack("<I", f.read(4))
+            data = f.read(length)
+            (dcrc,) = struct.unpack("<I", f.read(4))
+            check(hcrc == _masked_crc(header) and dcrc == _masked_crc(data),
+                  f"trainer: bad TB record crc in {path}")
+            n += 1
+    return n
+
+
+def check_fit_outputs(work: str, image_width: int) -> dict:
+    """The work dir of the fit: JSONL lines parse and hold the eval and
+    EPE records, the checkpoint steps are [TRAINER_STEPS], each panel PNG
+    has the PNG signature and the panel's IHDR size, every TB record's
+    CRC holds."""
+    import glob
+    import os
+    import struct
+
+    from scflow_torch.training.checkpoint import list_checkpoint_steps
+
+    with open(os.path.join(work, "train_log.jsonl")) as f:
+        log = [json.loads(line) for line in f]
+    check(any("eval/average/auc" in r for r in log)
+          and any(f"epe_iter{ITERS - 1}" in r for r in log),
+          "trainer: no eval or EPE record in the log")
+    steps = list_checkpoint_steps(os.path.join(work, "checkpoints"))
+    check(steps == [TRAINER_STEPS], f"trainer: checkpoint steps {steps}")
+    pngs = sorted(glob.glob(os.path.join(work, "images", "*.png")))
+    check(len(pngs) == TRAINER_STEPS // TRAINER_EVERY,
+          f"trainer: panels {pngs}")
+    for path in pngs:
+        with open(path, "rb") as f:
+            head = f.read(24)
+        check(head[:8] == b"\x89PNG\r\n\x1a\n" and head[12:16] == b"IHDR"
+              and struct.unpack(">II", head[16:24]) == (image_width, SIZE[0]),
+              f"trainer: bad PNG header {head!r}")
+    events = glob.glob(os.path.join(work, "tb", "events.out.tfevents.*"))
+    check(len(events) == 2, f"trainer: TB files {events}")
+    ckpt = os.path.join(work, "checkpoints", f"step_{TRAINER_STEPS:08d}",
+                        "state.pt")
+    return dict(log_records=len(log), checkpoint_steps=steps,
+                panels=[os.path.basename(p) for p in pngs],
+                tb_records=sum(read_tb_records(p) for p in events),
+                checkpoint_mb=os.path.getsize(ckpt) / 2 ** 20)
+
+
+def check_resume(trainer, batch) -> dict:
+    """A fresh Trainer's ``resume`` against the live state: every model
+    tensor, AdamW moment and the step bit-equal; then one step from each
+    on ``batch``: bit-equal loss terms, parameters within Adam's step
+    bound (see RESUME_*)."""
+    import torch
+
+    from scflow_torch.training import onecycle_lr
+    from scflow_torch.training.trainer import Trainer
+
+    t0 = time.perf_counter()
+    fresh = Trainer(trainer.cfg, trainer.renderer, trainer.points_bank,
+                    device="cuda")
+    step = fresh.resume()
+    torch.cuda.synchronize()
+    resume_ms = 1e3 * (time.perf_counter() - t0)
+    check(step == TRAINER_STEPS and fresh.step == trainer.step,
+          f"resume: step {step}, updates {fresh.step} vs {trainer.step}")
+    live, restored = trainer.model.state_dict(), fresh.model.state_dict()
+    for k, v in live.items():
+        check(torch.equal(v, restored[k]), f"resume: {k} differs")
+    opt_live = trainer.optimizer.state_dict()["state"]
+    opt_restored = fresh.optimizer.state_dict()["state"]
+    check(opt_live.keys() == opt_restored.keys(), "resume: AdamW state keys")
+    for i, s in opt_live.items():
+        for k, v in s.items():
+            check(torch.equal(v, opt_restored[i][k]),
+                  f"resume: AdamW {i}/{k} differs")
+    before = [p.detach().clone() for p in trainer.model.parameters()]
+    lr = onecycle_lr(trainer.step, trainer.cfg.optim)
+    m_live = trainer.train_step(batch)
+    m_restored = fresh.train_step(batch)
+    for key in ("loss", "loss_pose", "loss_flow", "loss_mask"):
+        check(torch.equal(m_live[key], m_restored[key]),
+              f"resume: {key} {m_live[key].item()} vs "
+              f"{m_restored[key].item()}")
+    diff = torch.cat([(a.detach() - b.detach()).ravel() for a, b in zip(
+        trainer.model.parameters(), fresh.model.parameters())])
+    update = torch.cat([(a.detach() - b).ravel() for a, b in zip(
+        trainer.model.parameters(), before)])
+    max_diff = diff.abs().max().item()
+    rel = (diff.norm() / update.norm()).item()
+    check(max_diff <= RESUME_LR_MULT * lr and rel <= RESUME_UPDATE_RTOL,
+          f"resume: parameters {max_diff} (lr {lr}), {rel} of the update")
+    grad_gap = abs(m_live["grad_norm"].item() - m_restored["grad_norm"].item())
+    del fresh
+    return dict(resume_ms=resume_ms, tensors=len(live),
+                adamw_tensors=sum(len(s) for s in opt_live.values()),
+                next_step={"loss_bit_equal": True,
+                           "param_max_abs_diff": max_diff, "lr": lr,
+                           "bound_abs": RESUME_LR_MULT * lr,
+                           "param_diff_over_update": rel,
+                           "bound_rel": RESUME_UPDATE_RTOL,
+                           "grad_norm_gap": grad_gap})
+
+
+def check_trainer_eval(trainer, batch) -> dict:
+    """``evaluate_device_accumulator`` on the card and on the port's CPU
+    path (a CPU Trainer with the card's weights) over the same 2 samples:
+    per-sample ADD(-S) errors within EVAL_ERR_RTOL; equal metrics unless
+    an error lies within that distance of a threshold or a bin edge."""
+    import torch
+
+    from scflow_torch.rendering import Renderer, make_test_meshes
+    from scflow_torch.training import build_points_bank
+    from scflow_torch.training.evaluate import (evaluate_device_accumulator,
+                                                pose_errors)
+    from scflow_torch.training.trainer import Trainer
+
+    cfg = trainer.cfg
+    small = {k: v[:2] for k, v in batch.items()}
+    bank = make_test_meshes(NUM_CLASS, subdivisions=2, device="cpu")
+    cpu = Trainer(cfg, Renderer(bank, image_size=SIZE),
+                  build_points_bank(bank, num_points=cfg.loss.num_loss_points),
+                  device="cpu")
+    cpu.model.load_state_dict(trainer.model.state_dict())
+    cpu_small = {k: v.cpu() for k, v in small.items()}
+    t0 = time.perf_counter()
+    got = evaluate_device_accumulator(trainer, [small], trainer.points_bank,
+                                      NUM_CLASS)
+    card_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    want = evaluate_device_accumulator(cpu, [cpu_small], cpu.points_bank,
+                                       NUM_CLASS)
+    cpu_s = time.perf_counter() - t0
+    errs = []
+    for tr, b in ((trainer, small), (cpu, cpu_small)):
+        out = tr.predict(b, sync=False)
+        errs.append(pose_errors(out["rotations"], out["translations"],
+                                b["gt_rotations"], b["gt_translations"],
+                                b["labels"], tr.points_bank).cpu())
+    err_card, err_cpu = errs
+    rel = ((err_card - err_cpu).abs() / err_cpu.abs()).max().item()
+    check(rel <= EVAL_ERR_RTOL, f"eval: ADD(-S) errors {err_card.tolist()} "
+          f"vs CPU {err_cpu.tolist()}")
+    if got != want:
+        # an error within EVAL_ERR_RTOL of a histogram bin edge (whole mm:
+        # 100 bins over 100 mm) or of a threshold (0.05, 0.1, 0.2, 0.5 of
+        # the diameter: whole hundredths) may count on the other side
+        diam = cpu.points_bank.diameters[cpu_small["labels"].long()]
+        scaled = [*err_cpu.tolist(), *(100 * err_cpu / diam).tolist()]
+        check(any(abs(x - round(x)) <= EVAL_ERR_RTOL * abs(x)
+                  for x in scaled), f"eval: card {got} vs CPU {want}")
+    return dict(samples=2, card=got, cpu_equal=got == want,
+                add_errors_mm=err_card.tolist(),
+                cpu_add_errors_mm=err_cpu.tolist(), max_rel_err=rel,
+                rtol=EVAL_ERR_RTOL, card_ms=card_ms, cpu_seconds=cpu_s)
+
+
+def phase_trainer(train_ms: float) -> tuple:
+    """The training CLI on the card; returns its launches of K1, the K2
+    forward and backward. ``train_ms``: the train phase's median step."""
+    import tempfile
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    import scflow_torch.train as cli
+    import scflow_torch.training.logging as logging_mod
+    import scflow_torch.training.trainer as trainer_mod
+    from scflow_torch.data import synthetic_batch
+    from scflow_torch.training import make_eval_step
+
+    t_phase = time.perf_counter()
+    timed = Timed()
+
+    def timed_factory(tag, factory):
+        return lambda *args, **kw: timed(tag, factory(*args, **kw))
+
+    # the steps the Trainer builds, and the functions fit and the CLI call
+    patches = [mock.patch.object(trainer_mod, name, timed_factory(
+        tag, getattr(trainer_mod, name))) for name, tag in (
+            ("make_train_step", "train"), ("make_panel_step", "panel"))]
+    patches += [mock.patch.object(mod, name, timed(tag, getattr(mod, name)))
+                for mod, name, tag in (
+                    (cli, "evaluate_device_accumulator", "eval"),
+                    (trainer_mod, "save_checkpoint", "save"),
+                    (logging_mod.ImageLogger, "log_panel", "log_panel"))]
+    with tempfile.TemporaryDirectory(prefix="scflow_trainer_") as work:
+        argv = ["--synthetic", "--work-dir", work, "--device", "cuda",
+                "--steps", str(TRAINER_STEPS), "--batch-size",
+                str(TRAIN_BATCH), "--image-size", str(SIZE[0]),
+                "--num-classes", str(NUM_CLASS), "--iters", str(ITERS),
+                "--eval-every", str(TRAINER_EVERY),
+                "--panel-every", str(TRAINER_EVERY)]
+        for p in patches:
+            p.start()
+        try:
+            reset_counts()
+            t0 = time.perf_counter()
+            trainer = cli.main(argv)
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            launches = counts()
+        finally:
+            for p in patches:
+                p.stop()
+        outputs = check_fit_outputs(work, 6 * SIZE[1])
+        check(trainer.step == TRAINER_STEPS, f"trainer: {trainer.step} steps")
+        steps = timed.records["train"]
+        for _, _, n in steps:
+            check(n == (1, 30, 30), f"trainer: launches per train step {n}")
+        starts = [t0 for t0, _, _ in steps]
+        fit_step_ms = [1e3 * (b - a) for a, b in zip(starts, starts[1:])]
+        eval_batch = synthetic_batch(torch.Generator().manual_seed(7_777),
+                                     trainer.renderer, TRAIN_BATCH)
+        resume = check_resume(trainer, eval_batch)
+        evaluation = check_trainer_eval(trainer, eval_batch)
+        bare = make_eval_step(trainer.model, trainer.renderer, trainer.cfg,
+                              device="cuda")(eval_batch)
+        pred = trainer.predict(eval_batch)
+        for key in ("rotations", "translations"):
+            check(np.array_equal(pred[key], bare[key].cpu().numpy()),
+                  f"trainer: predict {key} differs from the eval step")
+    emit(phase="trainer", batch=TRAIN_BATCH, image=list(SIZE),
+         classes=NUM_CLASS, iters=ITERS, dtype="float32",
+         steps=TRAINER_STEPS, eval_every=TRAINER_EVERY,
+         fit_step_ms_median=statistics.median(fit_step_ms),
+         fit_step_ms=fit_step_ms, train_phase_step_ms_median=train_ms,
+         train_step_in_fit_ms=timed.ms("train")[:TRAINER_STEPS],
+         eval_ms=timed.ms("eval"), panel_step_ms=timed.ms("panel"),
+         panel_write_ms=timed.ms("log_panel"), save_ms=timed.ms("save"),
+         fit_seconds=fit_s,
+         launches_per_train_step=dict(zip(
+             ("rasterize_tiles", "instance_norm_fwd", "instance_norm_bwd"),
+             steps[0][2])),
+         launches=list(launches),
+         launches_per_eval=[list(n) for _, _, n in timed.records["eval"]],
+         launches_per_panel=[list(n) for _, _, n in timed.records["panel"]],
+         **outputs, resume=resume, eval_parity=evaluation,
+         predict_equals_eval_step=True,
+         phase_seconds=time.perf_counter() - t_phase)
     return launches
 
 
@@ -1100,7 +1398,8 @@ def main() -> int:
     del model, step, cpu_model
 
     bwd_rows = phase_k2_bwd()
-    train = phase_train(bank)
+    train, train_ms = phase_train(bank)
+    trainer = phase_trainer(train_ms)
     bf16 = phase_bf16(renderer, batch, cpu_out, gpu_out)
     train_bf16 = phase_train_bf16(bank)
     raft = phase_raft(renderer, batch)
@@ -1111,7 +1410,7 @@ def main() -> int:
     # path's count, each read just after that path ran from 0
     main_counts = (main_run["k1"], main_run["k2"], 0)
     paths = {"main": main_counts, "bf16": (*bf16, 0), "raft": (*raft, 0),
-             "train": train, "train_bf16": train_bf16,
+             "train": train, "trainer": trainer, "train_bf16": train_bf16,
              "raft_train": raft_train}
 
     def by_path(i, names):
@@ -1119,11 +1418,11 @@ def main() -> int:
 
     k1_row.update(launches=main_run["k1"], launches_by_path=by_path(0, paths))
     fwd_rows[0].update(launches=main_run["k2"], launches_by_path=by_path(
-        1, ("main", "raft", "train", "raft_train")))
+        1, ("main", "raft", "train", "trainer", "raft_train")))
     fwd_rows[1].update(launches=bf16[1], launches_by_path=by_path(
         1, ("bf16", "train_bf16")))
     bwd_rows[0].update(launches=train[2], launches_by_path=by_path(
-        2, ("train", "raft_train")))
+        2, ("train", "trainer", "raft_train")))
     bwd_rows[1].update(launches=train_bf16[2],
                        launches_by_path=by_path(2, ("train_bf16",)))
     rows = [k1_row, *fwd_rows, *bwd_rows]

@@ -1,5 +1,5 @@
-"""Pose-induced flow and the GT-flow mask filter (port of
-``scflow_tpu/geometry/flow.py:31-184``). Flow is (..., H, W, 2) in xy
+"""Pose-induced flow, the GT-flow mask filter and the endpoint error (port
+of ``scflow_tpu/geometry/flow.py:31-205``). Flow is (..., H, W, 2) in xy
 order, the JAX layout."""
 from __future__ import annotations
 
@@ -82,3 +82,23 @@ def filter_flow_by_mask(flow: torch.Tensor, target_mask: torch.Tensor,
     sy = target[..., 1] * (h / max(h - 1, 1)) - 0.5
     sampled = _grid_sample_zeros(target_mask.to(flow.dtype), sx, sy)
     return torch.where((sampled >= threshold)[..., None], flow, invalid_num)
+
+
+def endpoint_error(flow_pred: torch.Tensor, flow_gt: torch.Tensor,
+                   valid: torch.Tensor | None = None) -> dict:
+    """Mean EPE and the 1/3/5-px accuracies over the valid pixels
+    (``valid`` bool, or float kept where > 0.5): dict(epe, acc1, acc3,
+    acc5) of 0-d tensors (reference models/utils/flow.py:64-88)."""
+    err = torch.linalg.vector_norm(flow_pred - flow_gt, dim=-1)
+    if valid is None:
+        valid = torch.ones_like(err, dtype=torch.bool)
+    elif valid.dtype != torch.bool:
+        valid = valid > 0.5
+    n = valid.sum().clamp_min(1)
+
+    def mean(x):
+        return torch.where(valid, x, 0.0).sum() / n
+
+    return {"epe": mean(err), "acc1": mean((err < 1.0).to(err.dtype)),
+            "acc3": mean((err < 3.0).to(err.dtype)),
+            "acc5": mean((err < 5.0).to(err.dtype))}

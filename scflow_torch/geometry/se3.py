@@ -1,5 +1,6 @@
-"""Delta-pose composition and rigid transforms (port of
-``scflow_tpu/geometry/se3.py:19-73``)."""
+"""Delta-pose composition, rigid transforms and the ADD / ADD-S pose
+errors (port of ``scflow_tpu/geometry/se3.py:19-132``). Every product is
+an elementwise f32 sum, so no TF32 path reaches the pose math."""
 from __future__ import annotations
 
 import torch
@@ -53,3 +54,31 @@ def compose_delta_pose(rotation_delta: torch.Tensor,
     vx = vz_xy * (dx / weight + tx / tz)
     vy = vz_xy * (dy / weight + ty / tz)
     return rotation_dst, torch.stack([vx, vy, vz], dim=-1)
+
+
+def add_error(r_pred: torch.Tensor, t_pred: torch.Tensor, r_gt: torch.Tensor,
+              t_gt: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """ADD: the mean distance between the mesh points (N, P, 3), or (P, 3)
+    broadcast over the batch, under the predicted and the GT pose → (N,)
+    (reference metrics/add.py, the non-symmetric branch)."""
+    diff = (transform_points(r_pred, t_pred, points)
+            - transform_points(r_gt, t_gt, points))
+    return torch.linalg.vector_norm(diff, dim=-1).mean(-1)
+
+
+def adds_error(r_pred: torch.Tensor, t_pred: torch.Tensor, r_gt: torch.Tensor,
+               t_gt: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """ADD-S: for each GT-posed point the distance to the nearest
+    pred-posed point, averaged → (N,) (reference metrics/add.py:386-394).
+
+    The JAX package's dense form |a|² + |b|² − 2a·b over all (P, P) pairs,
+    clamped at 0, with the cross products summed elementwise in f32 (a
+    (…, P, P, 3) intermediate). Near zero distance it cancels: its f32
+    rounding scale is ~2⁻²³·(|a|² + |b|²), ~0.09 mm² at 600 mm."""
+    p_pred = transform_points(r_pred, t_pred, points)      # (..., P, 3)
+    p_gt = transform_points(r_gt, t_gt, points)
+    sq_pred = (p_pred * p_pred).sum(-1)
+    sq_gt = (p_gt * p_gt).sum(-1)
+    cross = (p_gt[..., :, None, :] * p_pred[..., None, :, :]).sum(-1)
+    d2 = sq_gt[..., :, None] + sq_pred[..., None, :] - 2.0 * cross
+    return d2.clamp_min(0.0).amin(-1).sqrt().mean(-1)

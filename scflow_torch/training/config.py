@@ -1,9 +1,10 @@
 """Configuration dataclasses for the port's inference and training paths
 (the fields of ``scflow_tpu/training/config.py`` that these paths read,
-with the same names and defaults). The model is the SCFlow family or the
-RAFT flow(+occlusion) family with a shared feature encoder and Basic net;
-SCFlow with ortho6d rotations and exp depth transform, in float32 or
-bfloat16. Fields with other values come with the slices that run them."""
+with the same names and defaults), and the YCB-V constants. The model is
+the SCFlow family or the RAFT flow(+occlusion) family with a shared feature
+encoder and Basic net; SCFlow with ortho6d rotations and exp depth
+transform, in float32 or bfloat16. Fields with other values come with the
+slices that run them."""
 from __future__ import annotations
 
 import dataclasses
@@ -25,6 +26,10 @@ class ModelConfig:
     # compute dtype of the SCFlow conv/matmul stack: 'float32' | 'bfloat16'
     # (parameters and all geometry/pose math stay float32; RAFT runs f32)
     dtype: str = "float32"
+    # multi-cycle training / multi-pass testing: re-render at the refined
+    # pose between cycles/passes
+    train_cycles: int = 1
+    test_passes: int = 1
     # carry the pose-induced flow at feature resolution during eval
     lowres_eval: bool = True
 
@@ -72,6 +77,7 @@ class RenderConfig:
 @dataclasses.dataclass
 class DataConfig:
     batch_size: int = 16
+    image_scale: int = 256
     normalize_mean: tuple = (0.0, 0.0, 0.0)
     normalize_std: tuple = (255.0, 255.0, 255.0)
 
@@ -84,3 +90,24 @@ class Config:
     jitter: JitterConfig = dataclasses.field(default_factory=JitterConfig)
     render: RenderConfig = dataclasses.field(default_factory=RenderConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    seed: int = 0
+    checkpoint_interval: int = 10_000
+    log_interval: int = 50
+    work_dir: str = "work_dirs/scflow"
+    # mirror scalar logs and image panels into work_dir/tb as TensorBoard
+    # event files (JSONL and PNGs stay the primary record)
+    tensorboard: bool = True
+
+
+# YCB-V constants (reference configs/refine_models/scflow_ycbv_pbr.py:18-39)
+YCBV_SYMMETRIC_CLASSES = (12, 15, 18, 19, 20)  # 0-based: cls 13,16,19,20,21
+YCBV_MESH_DIAMETERS = (
+    172.16, 269.58, 198.38, 120.66, 199.79, 90.17, 142.58, 114.39, 129.73,
+    198.40, 263.60, 260.76, 162.27, 126.86, 230.44, 237.30, 204.11, 121.46,
+    183.08, 231.39, 102.92)
+YCBV_CLASS_NAMES = (
+    "master_chef_can", "cracker_box", "sugar_box", "tomato_soup_can",
+    "mustard_bottle", "tuna_fish_can", "pudding_box", "gelatin_box",
+    "potted_meat_can", "banana", "pitcher_base", "bleach_cleanser", "bowl",
+    "mug", "power_drill", "wood_block", "scissors", "large_marker",
+    "large_clamp", "extra_large_clamp", "foam_brick")

@@ -142,6 +142,7 @@ def _eval_step_core(model: SCFlowRefiner | RAFTRefiner, renderer: Renderer,
 
     @torch.inference_mode()
     def eval_step(batch: dict) -> dict:
+        model.eval()        # a train step in between leaves it in train mode
         batch = {k: _to_device(v, dev) for k, v in batch.items()}
         real = device_normalize_images(batch["real_images"], cfg)
         labels = batch["labels"].long()
@@ -213,6 +214,56 @@ def make_multi_pass_eval_step(model: SCFlowRefiner | RAFTRefiner,
         return out
 
     return multi_pass_step
+
+
+def make_panel_step(model: SCFlowRefiner, renderer: Renderer, cfg: Config,
+                    device: str | torch.device = "cuda"):
+    """Observability step on ``device``: refine a train batch in eval mode
+    without gradients and return sample 0's panel arrays (real | render |
+    gt/pose/pred flow | mask, HWC) and the per-iteration EPE vector (T,)
+    over the pixels with a valid GT flow inside the render mask (the
+    device side of the reference's TensorboardImgLoggerHook + eval_seq_epe).
+    SCFlow only: a RAFT model has no in-loop pose (ValueError)."""
+    if isinstance(model, RAFTRefiner):
+        raise ValueError("panels use in-loop poses (SCFlow family)")
+    dev = resolve_device(device)
+    model.to(dev)
+    renderer = dataclasses.replace(renderer,
+                                   mesh_bank=renderer.mesh_bank.to(dev))
+    max_flow = cfg.model.max_flow
+    mean = torch.tensor(cfg.data.normalize_mean, device=dev) / 255.0
+    std = torch.tensor(cfg.data.normalize_std, device=dev) / 255.0
+
+    @torch.inference_mode()
+    def panel_step(batch: dict) -> dict:
+        model.eval()
+        batch = {k: _to_device(v, dev) for k, v in batch.items()}
+        rendered, depth, rmask = render_at_pose(
+            renderer, batch["ref_rotations"], batch["ref_translations"],
+            batch["k"], batch["labels"].long(), cfg.data.normalize_mean,
+            cfg.data.normalize_std)
+        real, gt_flow, _ = _loss_targets(dict(batch, rendered_depths=depth),
+                                         cfg)
+        outputs = model(rendered, real, batch["ref_rotations"],
+                        batch["ref_translations"], depth, batch["k"],
+                        batch["labels"].long())
+        valid = ((torch.linalg.vector_norm(gt_flow, dim=-1) < max_flow)
+                 & (rmask > 0.5))
+        w = valid.float()
+        err = torch.linalg.vector_norm(outputs.flow_from_pred - gt_flow[None],
+                                       dim=-1)              # (T, N, H, W)
+        epe = (err * w[None]).sum((1, 2, 3)) / w.sum().clamp_min(1.0)
+        return {
+            "real": real[0] * std + mean,
+            "render": rendered[0] * std + mean,
+            "gt_flow": gt_flow[0],
+            "pose_flow": outputs.flow_from_pose[-1, 0],
+            "pred_flow": outputs.flow_from_pred[-1, 0],
+            "mask": outputs.masks[-1, 0, ..., 0],
+            "epe_per_iter": epe,
+        }
+
+    return panel_step
 
 
 def onecycle_lr(step: int, optim: OptimConfig) -> float:

@@ -58,7 +58,10 @@ def test_entry_points_refuse_missing_gpu(monkeypatch):
                                        make_eval_step,
                                        make_multi_cycle_train_step,
                                        make_multi_pass_eval_step,
-                                       make_optimizer, make_train_step)
+                                       make_optimizer, make_panel_step,
+                                       make_train_step)
+    from scflow_torch.train import main
+    from scflow_torch.training.trainer import Trainer
 
     cfg = Config(model=ModelConfig(num_class=2),
                  render=RenderConfig(image_size=(64, 64)))
@@ -82,7 +85,12 @@ def test_entry_points_refuse_missing_gpu(monkeypatch):
                  lambda: make_eval_step(raft, renderer, raft_cfg),
                  lambda: make_train_step(raft, renderer, points, raft_cfg,
                                          opt),
-                 lambda: make_test_meshes(2, subdivisions=1)):
+                 lambda: make_test_meshes(2, subdivisions=1),
+                 lambda: make_panel_step(model, renderer, cfg),
+                 lambda: Trainer(cfg, renderer, points),
+                 lambda: Trainer(cfg, renderer, points, device="cuda:0"),
+                 lambda: main(["--synthetic", "--steps", "1",
+                               "--image-size", "64", "--num-classes", "2"])):
         with pytest.raises(RuntimeError, match="no CUDA GPU"):
             call()
     assert next(model.parameters()).device.type == "cpu"
