@@ -62,6 +62,25 @@ Phases (each prints one JSON line; any failed check raises):
           and 5 mm of the GT pose.
   raft_train  the RAFT train step (raft_loss) at batch 16: 2 warm-up and 3
           timed steps, launches per step, finite metrics, moved parameters.
+  sync    one f32 eval step of the main path, its batch already on the
+          card, under ``torch.cuda.set_sync_debug_mode``: "warn" lists any
+          synchronising call by file and line, then "error" must raise
+          nothing (the step copies nothing from the host).
+  eval_bop  the BOP eval CLI: ``scflow_torch.tools.make_synthetic_bop``
+          writes 48 images at 640×480 with 3–6 of 21 classes each on the
+          card, then ``scflow_torch.test.main`` evaluates them at the CLI's
+          width (256², 8 iterations, lowres, slot budget 16, f32) with
+          ``--save-dir``: the tree's write time, images, objects, packed
+          batches and the share of slots used, the loop's wall time and
+          rates beside batches × one packed step's time, the host time per
+          image to decode and crop, the host time of the metric's matching
+          and ADD(-S), launches per packed batch (K1 1, K2 30), the metric;
+          every image has a record, every GT object an instance, the BOP
+          file reads back equal to the poses, and the first 2 images
+          evaluated again on the CPU agree (poses within POSE_TOL, ADD(-S)
+          records within EVAL_ERR_RTOL or what the pose gap can move
+          them). Also one 640×480 Paeth-filtered PNG
+          decoded by the port's reader, timed.
 Then the ``kernels`` line (K1, the K2 forward and backward in f32 and in
 bf16, each with its launches on every path), the card line from nvidia-smi
 and, last, ``{"ok": true, "device": {...}}``. Exits non-zero without a
@@ -111,6 +130,10 @@ RAFT_OCC_TOL = dict(rtol=0.0, atol=1e-3)
 # trainer: fit steps, eval and panel interval; card vs CPU ADD(-S) errors
 TRAINER_STEPS, TRAINER_EVERY = 6, 3
 EVAL_ERR_RTOL = 1e-3
+# eval_bop: the synthetic tree (YCB-V's frame; its test images hold ~4.6
+# objects on average) and the CLI's packing budget
+BOP_IMAGES, BOP_FRAME, BOP_OBJECTS, BOP_BUDGET = 48, (480, 640), (3, 6), 16
+BOP_CPU_IMAGES = 2
 # a step after resume, live vs restored state: the loss is bit-equal (a
 # deterministic forward); cuDNN's backward may sum in another order, so
 # the parameters are held to Adam's step bound (2.5 lr per element) and
@@ -1308,6 +1331,255 @@ def phase_raft_train(bank) -> tuple:
     return launches
 
 
+def phase_sync(step, batch) -> dict:
+    """One eval step, its batch already on the card, under the sync debug
+    mode: "warn" first, so every synchronising call is listed by file and
+    line, then "error", which must raise nothing."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step(batch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # (setting the mode itself warns that it is a prototype feature)
+    syncs = sorted({f"{w.filename}:{w.lineno}" for w in caught
+                    if "called a synchronizing" in str(w.message)})
+    check(not syncs, f"sync: the eval step synchronises at {syncs}")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = step(batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out["translations"]).all()),
+          "sync: outputs not finite")
+    fields = dict(batch=batch["labels"].shape[0], mode="error", raised=False,
+                  synchronising_calls=syncs)
+    emit(phase="sync", **fields)
+    return fields
+
+
+def paeth_png(img) -> bytes:
+    """A PNG of ``img`` (H, W, 3) uint8 whose every row uses the Paeth
+    filter, the slowest for the port's decoder (cv2 picks filters per row;
+    the port's own encoder writes filter 0)."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    h, w, c = img.shape
+    px = img.reshape(h, w * c).astype(np.int16)
+    up = np.vstack([np.zeros((1, w * c), np.int16), px[:-1]])
+    left = np.hstack([np.zeros((h, c), np.int16), px[:, :-c]])
+    upleft = np.hstack([np.zeros((h, c), np.int16), up[:, :-c]])
+    p = left + up - upleft
+    pa, pb, pc = (np.abs(p - q) for q in (left, up, upleft))
+    pred = np.where((pa <= pb) & (pa <= pc), left,
+                    np.where(pb <= pc, up, upleft))
+    rows = np.hstack([np.full((h, 1), 4, np.uint8),
+                      ((px - pred) % 256).astype(np.uint8)])
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes()))
+            + chunk(b"IEND", b""))
+
+
+def bop_cli_args(root: str, device: str, budget: int) -> list:
+    return ["--data-root", f"{root}/test", "--ref-annots-root",
+            f"{root}/init_poses", "--image-list",
+            f"{root}/image_lists/test.txt", "--mesh-dir", f"{root}/models",
+            "--num-classes", str(NUM_CLASS), "--image-size", str(SIZE[0]),
+            "--iters", str(ITERS), "--slot-budget", str(budget),
+            "--device", device]
+
+
+def phase_eval_bop() -> tuple:
+    """The BOP eval CLI on a tree the port writes on the card; returns the
+    loop's launches of K1 and the K2 forward."""
+    import os
+    import tempfile
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    import scflow_torch.test as cli
+    import scflow_torch.training.evaluate as evaluate_mod
+    from scflow_torch.data.imageio import imread
+    from scflow_torch.data.loader import TestBatchBuilder
+    from scflow_torch.metrics import ADDMetric
+    from scflow_torch.tools.make_synthetic_bop import main as make_tree
+
+    t_phase = time.perf_counter()
+    item_s, process_s, slots, seen = [], [], [], {}
+
+    def host_timed(fn, into):
+        def wrapped(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                into.append(time.perf_counter() - t0)
+        return wrapped
+
+    def packed(items, budget):
+        for batch, metas in pack(items, budget):
+            slots.append(int(batch["sample_valid"].sum()))
+            yield batch, metas
+
+    def loop(trainer, builder, metric, **kw):
+        seen.update(trainer=trainer, builder=builder, metric=metric)
+        t0 = time.perf_counter()
+        out = evaluate(trainer, builder, metric, **kw)
+        seen["loop_s"] = time.perf_counter() - t0
+        return out
+
+    pack, evaluate = evaluate_mod.pack_eval_batches, evaluate_mod.evaluate_dataset
+    with tempfile.TemporaryDirectory(prefix="scflow_bop_") as root:
+        t0 = time.perf_counter()
+        tree = make_tree(["--out", root, "--num-images", str(BOP_IMAGES),
+                          "--num-classes", str(NUM_CLASS), "--height",
+                          str(BOP_FRAME[0]), "--width", str(BOP_FRAME[1]),
+                          "--min-objects", str(BOP_OBJECTS[0]),
+                          "--max-objects", str(BOP_OBJECTS[1]), "--seed", "0",
+                          "--device", "cuda"])
+        write_s = time.perf_counter() - t0
+        patches = [
+            mock.patch.object(TestBatchBuilder, "__getitem__", host_timed(
+                TestBatchBuilder.__getitem__, item_s)),
+            mock.patch.object(ADDMetric, "process", host_timed(
+                ADDMetric.process, process_s)),
+            mock.patch.object(evaluate_mod, "pack_eval_batches", packed),
+            mock.patch.object(evaluate_mod, "evaluate_dataset", loop)]
+        for p in patches:
+            p.start()
+        try:
+            reset_counts()
+            metrics, results = cli.main(bop_cli_args(root, "cuda", BOP_BUDGET)
+                                        + ["--save-dir", f"{root}/res"])
+            torch.cuda.synchronize()
+            k1, k2, k2b = counts()
+        finally:
+            for p in patches:
+                p.stop()
+        batches = len(slots)
+        check(k2b == 0 and (k1, k2) == (batches, 30 * batches),
+              f"eval_bop: launches K1/K2 {k1}/{k2} over {batches} batches")
+        check(sorted(r["img_id"] for r in results) == list(range(BOP_IMAGES)),
+              "eval_bop: an image has no record")
+        check(metrics["num_instances"] == tree["objects"] == sum(slots),
+              f"eval_bop: {metrics['num_instances']} instances, "
+              f"{tree['objects']} objects, {sum(slots)} slots")
+        with open(f"{root}/res/000001/scene_gt.json") as f:
+            written = json.load(f)
+        for r in results:
+            objs = written[str(r["img_id"])]
+            for key, got in (("cam_R_m2c", r["rotations"]),
+                             ("cam_t_m2c", r["translations"])):
+                back = np.asarray([o[key] for o in objs], np.float32)
+                check(np.array_equal(back, got.reshape(len(objs), -1)),
+                      f"eval_bop: BOP file {key} of image {r['img_id']}")
+
+        # one packed batch on the card: the loop's step, timed alone
+        trainer, builder = seen["trainer"], seen["builder"]
+        first = next(pack((builder[i] for i in range(BOP_IMAGES)),
+                          BOP_BUDGET))[0]
+        on_card = {k: torch.from_numpy(first[k]).cuda()
+                   for k in evaluate_mod.EVAL_KEYS}
+        step_ms = call_ms(lambda: trainer.eval_step(on_card), 5, 1)
+
+        # the first images again, on the CPU, in one batch of their objects
+        loop_s, card_records = seen["loop_s"], seen["metric"].records_arrays()
+        n_cpu = sum(len(r["labels"]) for r in results[:BOP_CPU_IMAGES])
+        t0 = time.perf_counter()
+        with mock.patch.object(evaluate_mod, "evaluate_dataset", loop):
+            _, cpu_results = cli.main(
+                bop_cli_args(root, "cpu", n_cpu)
+                + ["--limit", str(BOP_CPU_IMAGES), "--save-dir",
+                   f"{root}/res_cpu"])
+        cpu_s = time.perf_counter() - t0
+        cpu_records = seen["metric"].records_arrays()
+        check(len(cpu_results) == BOP_CPU_IMAGES,
+              f"eval_bop: {len(cpu_results)} CPU results")
+        rot_err = trans_err = 0.0
+        for g, c in zip(results, cpu_results):
+            rot_err = max(rot_err, np.abs(g["rotations"] - c["rotations"]).max())
+            diff = np.abs(g["translations"] - c["translations"])
+            check(bool((diff <= POSE_TOL["trans_atol"] + POSE_TOL["trans_rtol"]
+                        * np.abs(c["translations"])).all()),
+                  f"eval_bop cpu parity: translation err {diff.max()}")
+            trans_err = max(trans_err, diff.max())
+        check(rot_err <= POSE_TOL["rot_atol"],
+              f"eval_bop cpu parity: rotation err {rot_err}")
+        n_rec = len(cpu_records["add"])
+        check(n_rec == n_cpu and np.array_equal(
+            card_records["labels"][:n_rec], cpu_records["labels"]),
+            "eval_bop cpu parity: other records")
+        # each record within EVAL_ERR_RTOL, or within what the measured
+        # pose gap can move an ADD: 3·rotation gap·point radius + √3·
+        # translation gap (a refined pose's ADD can be a fraction of a mm)
+        radius = trainer.points_bank.points.norm(dim=-1).max().item()
+        pose_bound = float(3 * rot_err * radius + math.sqrt(3) * trans_err)
+        add_abs = add_rel = 0.0
+        for key in ("add", "adds"):
+            diff = np.abs(card_records[key][:n_rec] - cpu_records[key])
+            ref = np.abs(cpu_records[key])
+            check(bool((diff <= np.maximum(EVAL_ERR_RTOL * ref,
+                                           pose_bound)).all()),
+                  f"eval_bop cpu parity: {key} records {diff.max()} apart "
+                  f"(pose bound {pose_bound})")
+            add_abs = max(add_abs, float(diff.max()))
+            add_rel = max(add_rel, float((diff / ref).max()))
+
+        png = np.random.default_rng(0).integers(0, 256, (*BOP_FRAME, 3),
+                                                np.uint8)
+        path = os.path.join(root, "paeth.png")
+        with open(path, "wb") as f:
+            f.write(paeth_png(png))
+        t0 = time.perf_counter()
+        check(np.array_equal(imread(path), png), "eval_bop: Paeth PNG decode")
+        paeth_s = time.perf_counter() - t0
+
+    emit(phase="eval_bop", images=BOP_IMAGES, frame=list(BOP_FRAME),
+         classes=NUM_CLASS, objects=tree["objects"], image=list(SIZE),
+         iters=ITERS, lowres=True, dtype="float32", slot_budget=BOP_BUDGET,
+         tree_write_s=write_s, batches=batches,
+         slot_share=sum(slots) / (batches * BOP_BUDGET),
+         loop_s=loop_s, images_per_s=BOP_IMAGES / loop_s,
+         objects_per_s=tree["objects"] / loop_s,
+         packed_step_ms_median=step_ms,
+         batches_x_step_s=batches * step_ms / 1e3,
+         decode_crop_ms_per_image_median=1e3 * statistics.median(item_s),
+         decode_crop_s_total=sum(item_s),
+         match_add_ms_per_image_median=1e3 * statistics.median(process_s),
+         match_add_s_total=sum(process_s),
+         launches_per_batch={"rasterize_tiles": k1 / batches,
+                             "instance_norm_fwd": k2 / batches},
+         metric={k: metrics[k] for k in ("average/add_0.10d", "instance/auc",
+                                         "num_instances")},
+         cpu_parity={"images": BOP_CPU_IMAGES, "objects": n_cpu,
+                     "rotation_max_abs_err": float(rot_err),
+                     "translation_max_abs_err": float(trans_err),
+                     "add_max_abs_err": add_abs, "add_max_rel_err": add_rel,
+                     "add_rtol": EVAL_ERR_RTOL, "add_pose_bound": pose_bound,
+                     "cpu_seconds": cpu_s, **POSE_TOL},
+         paeth_png_decode_s=paeth_s, bop_file_equal=True,
+         phase_seconds=time.perf_counter() - t_phase)
+    return k1, k2
+
+
 def main() -> int:
     import torch
 
@@ -1383,6 +1655,7 @@ def main() -> int:
                      "cpu_seconds": cpu_s, **POSE_TOL})
 
     phase_profile(model, renderer, cfg, step, batch)
+    phase_sync(step, batch)
 
     full_cfg = Config(model=ModelConfig(num_class=NUM_CLASS, iters=ITERS,
                                         test_iters=ITERS, lowres_eval=False))
@@ -1404,6 +1677,7 @@ def main() -> int:
     train_bf16 = phase_train_bf16(bank)
     raft = phase_raft(renderer, batch)
     raft_train = phase_raft_train(bank)
+    eval_bop = phase_eval_bop()
     emit(phase="done", seconds_total=time.perf_counter() - t_start)
 
     # ``launches``: the row's own path (f32 or bf16); beside it every
@@ -1411,14 +1685,14 @@ def main() -> int:
     main_counts = (main_run["k1"], main_run["k2"], 0)
     paths = {"main": main_counts, "bf16": (*bf16, 0), "raft": (*raft, 0),
              "train": train, "trainer": trainer, "train_bf16": train_bf16,
-             "raft_train": raft_train}
+             "raft_train": raft_train, "eval_bop": (*eval_bop, 0)}
 
     def by_path(i, names):
         return {p: paths[p][i] for p in names}
 
     k1_row.update(launches=main_run["k1"], launches_by_path=by_path(0, paths))
     fwd_rows[0].update(launches=main_run["k2"], launches_by_path=by_path(
-        1, ("main", "raft", "train", "trainer", "raft_train")))
+        1, ("main", "raft", "train", "trainer", "raft_train", "eval_bop")))
     fwd_rows[1].update(launches=bf16[1], launches_by_path=by_path(
         1, ("bf16", "train_bf16")))
     bwd_rows[0].update(launches=train[2], launches_by_path=by_path(

@@ -1,4 +1,5 @@
 """Mesh banks, shading and the batched renderer."""
-from .mesh import MeshBank, box, build_mesh_bank, icosphere, make_test_meshes  # noqa: F401
+from .mesh import (MeshBank, box, build_mesh_bank, icosphere,  # noqa: F401
+                   load_mesh_dir, load_mesh_file, make_test_meshes)
 from .renderer import Renderer  # noqa: F401
 from .shading import PhongParams, phong_color, phong_shade  # noqa: F401

@@ -2,10 +2,14 @@
 
 All class meshes are padded to a common (Vmax, Fmax) budget and stacked,
 so a batch render is one gather by label followed by fixed-shape compute.
+Banks come from procedural test meshes or from a directory of PLY/OBJ
+files (:func:`load_mesh_dir`).
 """
 from __future__ import annotations
 
 import dataclasses
+from glob import glob
+from os import path as osp
 
 import numpy as np
 import torch
@@ -129,6 +133,34 @@ def build_mesh_bank(meshes: list[dict], pad_verts: int | None = None,
     return MeshBank(verts=t(verts), faces=t(faces), face_valid=t(valid),
                     vert_normals=t(normals), vert_colors=t(colors),
                     diameters=t(diam))
+
+
+def load_mesh_file(path: str) -> dict:
+    """One .ply/.obj mesh in the bank input format (verts, faces,
+    vert_colors; UV textures baked to vertex colors)."""
+    from . import meshio
+
+    if path.lower().endswith(".ply"):
+        return meshio.load_ply(path)
+    if path.lower().endswith(".obj"):
+        return meshio.load_obj(path)
+    raise ValueError(f"unsupported mesh format: {path}")
+
+
+def load_mesh_dir(mesh_dir: str, ext: str = "ply",
+                  pad_verts: int | None = None,
+                  pad_faces: int | None = None,
+                  device: str | torch.device = "cuda") -> MeshBank:
+    """Every ``*.{ext}`` mesh of a directory, sorted by name, as a MeshBank
+    on ``device``; the reference's labels: ``obj_000001.ply`` → label 0
+    (models/utils/rendering.py:141-147)."""
+    dev = resolve_device(device)
+    paths = sorted(glob(osp.join(mesh_dir, f"*.{ext}")))
+    if not paths:
+        raise FileNotFoundError(f"no *.{ext} meshes under {mesh_dir}")
+    return build_mesh_bank([load_mesh_file(p) for p in paths],
+                           pad_verts=pad_verts, pad_faces=pad_faces,
+                           device=dev)
 
 
 def icosphere(subdivisions: int = 2, radius: float = 1.0):

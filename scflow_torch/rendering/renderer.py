@@ -37,6 +37,13 @@ class Renderer:
 
     def __post_init__(self):
         self.mesh_bank = self.mesh_bank.with_tri_tables()
+        # constants on the bank's device, made once: a render copies
+        # nothing from the host, so it never waits for the device
+        dev = self.mesh_bank.device
+        self._shading = self.shading.on(dev)
+        self._background = torch.tensor(self.background_color,
+                                        dtype=torch.float32, device=dev)
+        self._up_light = torch.tensor([0.0, 1.0, 0.0], device=dev)
 
     def __call__(self, rotations: torch.Tensor, translations: torch.Tensor,
                  k: torch.Tensor, labels: torch.Tensor) -> dict:
@@ -54,11 +61,11 @@ class Renderer:
         if self.shader_type == "phong":
             images = phong_shade(
                 interp[..., 0:3], interp[..., 3:6], interp[..., 6:9], mask,
-                inp["light_obj"], inp["cam_obj"], params=self.shading,
-                background_color=self.background_color)
+                inp["light_obj"], inp["cam_obj"], params=self._shading,
+                background_color=self._background)
         else:
-            bg = interp.new_tensor(self.background_color)
-            images = torch.where(mask[..., None], interp, bg).clamp(0.0, 1.0)
+            images = torch.where(mask[..., None], interp,
+                                 self._background).clamp(0.0, 1.0)
         return {"images": images, "depth": frag["zbuf"], "mask": mask}
 
     def rasterizer_inputs(self, rotations: torch.Tensor,
@@ -92,8 +99,7 @@ class Renderer:
             loc = (zmin - self.light_offset).clamp_min(0.0)
             light_obj = rotations[:, :, 2] * loc[:, None]
         else:
-            light_obj = verts.new_tensor([0.0, 1.0, 0.0]).expand(
-                verts.shape[0], 3)
+            light_obj = self._up_light.expand(verts.shape[0], 3)
 
         if self.shader_type == "phong":
             attr_table = tri_attr
@@ -101,14 +107,14 @@ class Renderer:
             attr_table = phong_color(
                 tri_attr[..., 0:3], tri_attr[..., 3:6], tri_attr[..., 6:9],
                 light_obj[:, None, None], cam_obj[:, None, None],
-                params=self.shading)
+                params=self._shading)
         elif self.shader_type == "flat":
             fn_obj = torch.linalg.cross(tri_pos[:, :, 1] - tri_pos[:, :, 0],
                                         tri_pos[:, :, 2] - tri_pos[:, :, 0],
                                         dim=-1)
             face_color = phong_color(
                 tri_pos.mean(dim=2), fn_obj, tri_attr[..., 6:9].mean(dim=2),
-                light_obj[:, None], cam_obj[:, None], params=self.shading)
+                light_obj[:, None], cam_obj[:, None], params=self._shading)
             attr_table = face_color[:, :, None, :].expand(-1, -1, 3, -1)
         else:
             raise ValueError(f"unknown shader_type {self.shader_type!r}")

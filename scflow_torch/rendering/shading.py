@@ -10,11 +10,20 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class PhongParams:
-    """pytorch3d PointLights + Materials defaults."""
+    """pytorch3d PointLights + Materials defaults. The colors are tuples,
+    or (3,) tensors on the shade points' device (:meth:`on`)."""
     ambient_color: tuple = (0.5, 0.5, 0.5)
     diffuse_color: tuple = (0.3, 0.3, 0.3)
     specular_color: tuple = (0.2, 0.2, 0.2)
     shininess: float = 64.0
+
+    def on(self, device: torch.device) -> "PhongParams":
+        """These parameters with f32 color tensors on ``device``, made
+        once, so shading copies nothing from the host."""
+        return dataclasses.replace(self, **{
+            name: torch.tensor(getattr(self, name), dtype=torch.float32,
+                               device=device)
+            for name in ("ambient_color", "diffuse_color", "specular_color")})
 
 
 def _unit(v: torch.Tensor) -> torch.Tensor:
@@ -28,7 +37,7 @@ def phong_color(points_obj: torch.Tensor, normals_obj: torch.Tensor,
     """Unclipped Phong color at (..., 3) shade points; light and camera
     locations broadcast against the leading shape."""
     def vec(c):
-        return torch.tensor(c, dtype=albedo.dtype, device=albedo.device)
+        return torch.as_tensor(c, dtype=albedo.dtype, device=albedo.device)
 
     n = _unit(normals_obj)
     l_dir = _unit(light_location_obj - points_obj)
@@ -50,9 +59,11 @@ def phong_shade(points_obj: torch.Tensor, normals_obj: torch.Tensor,
                 params: PhongParams = PhongParams(),
                 background_color=(0.5, 0.5, 0.5)) -> torch.Tensor:
     """Shade (..., H, W, 3) rasterized pixels; ``mask`` (..., H, W) selects
-    the foreground, lights and camera are (..., 3). Returns RGB in [0, 1]."""
+    the foreground, lights and camera are (..., 3); the background is a
+    tuple or a (3,) tensor on the pixels' device. Returns RGB in [0, 1]."""
     color = phong_color(points_obj, normals_obj, albedo,
                         light_location_obj[..., None, None, :],
                         camera_location_obj[..., None, None, :], params)
-    bg = torch.tensor(background_color, dtype=color.dtype, device=color.device)
+    bg = torch.as_tensor(background_color, dtype=color.dtype,
+                         device=color.device)
     return torch.where(mask[..., None], color, bg).clamp(0.0, 1.0)

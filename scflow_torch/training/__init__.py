@@ -9,4 +9,5 @@ from .steps import (build_model, clip_by_global_norm_,  # noqa: F401
                     device_normalize_images, make_eval_step,
                     make_multi_cycle_train_step, make_multi_pass_eval_step,
                     make_optimizer, make_panel_step, make_train_step,
-                    onecycle_lr, raft_loss, render_at_pose, scflow_loss)
+                    normalization, onecycle_lr, raft_loss, render_at_pose,
+                    scflow_loss)

@@ -4,7 +4,11 @@ with the same names and defaults), and the YCB-V constants. The model is
 the SCFlow family or the RAFT flow(+occlusion) family with a shared feature
 encoder and Basic net; SCFlow with ortho6d rotations and exp depth
 transform, in float32 or bfloat16. Fields with other values come with the
-slices that run them."""
+slices that run them.
+
+One deliberate difference: ``DataConfig`` has no ``use_native`` /
+``native_crop``. The port has one crop path, with the semantics of the JAX
+package's C++ crop (``data.pipeline.crop_resize_pad_batch``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -67,6 +71,7 @@ class JitterConfig:
     z_std_mm: float = 50.0
     angle_limit_deg: float = 45.0
     translation_limit_mm: float = 200.0
+    add_limit: float = 1.0            # × mesh diameter
 
 
 @dataclasses.dataclass
@@ -78,6 +83,8 @@ class RenderConfig:
 class DataConfig:
     batch_size: int = 16
     image_scale: int = 256
+    # eval crops: the reference-pose bbox expanded by this factor
+    test_crop_size: float = 1.1
     normalize_mean: tuple = (0.0, 0.0, 0.0)
     normalize_std: tuple = (255.0, 255.0, 255.0)
 

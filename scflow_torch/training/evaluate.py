@@ -1,22 +1,192 @@
-"""Evaluation with on-device ADD(-S) accumulation (port of
-``scflow_tpu/training/evaluate.py:274-330``): refine padded batches whose
-predictions line up with the GT slot for slot (jittered-GT synthetic
-batches, scene batches) and accumulate masked ADD(-S) errors on the
-device; the host reads the accumulator once, at the end.
+"""Evaluation loops (port of ``scflow_tpu/training/evaluate.py:33-105,
+144-330``).
 
-The packed eval over a BOP test split (``pack_eval_batches``,
-``evaluate_dataset``, the pose-graph pass) comes with the data slice.
+- :func:`evaluate_dataset` — the eval over a BOP test split: a thread pool
+  decodes and crops images in dataset order (:func:`_prefetch_items`),
+  :func:`pack_eval_batches` packs several images' objects into one
+  fixed-shape batch of ``slot_budget`` slots, the device refines each
+  batch, and the host matches predictions to GT per image (exact ADD(-S) /
+  AUC / REP, ``metrics.ADDMetric``). Two batches stay in flight: each
+  batch's poses go to pinned host memory by an asynchronous copy behind a
+  CUDA event, and the host waits for that event only when it consumes the
+  batch, so decode, crop and matching overlap the device.
+- :func:`evaluate_device_accumulator` — refine padded batches whose
+  predictions line up with the GT slot for slot (jittered-GT synthetic
+  batches, scene batches) and accumulate masked ADD(-S) errors on the
+  device; the host reads the accumulator once, at the end.
+
+The scene pose-graph pass and the cross-process gather come with the
+parallel slice.
 """
 from __future__ import annotations
 
+import itertools
+from collections import deque
 from collections.abc import Callable, Iterable
+from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
 from ..geometry.se3 import add_error, adds_error
 from ..parallel.collect import MetricAccumulator
 from .points_bank import PointsBank
 from .steps import _to_device
+
+EVAL_KEYS = ("real_images", "ref_rotations", "ref_translations", "k", "labels")
+
+
+def _pad_slots(arrs: list[np.ndarray], budget: int) -> np.ndarray:
+    """Stack per-object arrays and pad the slot axis with copies of slot 0."""
+    stacked = np.concatenate(arrs, axis=0)
+    n = stacked.shape[0]
+    if n < budget:
+        filler = np.tile(stacked[:1], (budget - n,) + (1,) * (stacked.ndim - 1))
+        stacked = np.concatenate([stacked, filler], axis=0)
+    return stacked
+
+
+def pack_eval_batches(items: Iterable[dict], slot_budget: int):
+    """Pack per-image eval items into fixed-shape batches.
+
+    Each yielded value is ``(batch, metas)``: ``batch`` has ``slot_budget``
+    object slots (keys real_images/ref_rotations/ref_translations/k/labels
+    + sample_valid); ``metas`` is a list of ``(item, start, n)`` locating
+    every packed image's slots. Images with more objects than the budget
+    are truncated to the budget (reference batches are size-1 images;
+    YCB-V never exceeds ~8 objects).
+    """
+    cur, metas, used = {k: [] for k in EVAL_KEYS}, [], 0
+    for item in items:
+        if item is None:
+            continue
+        n = min(len(item["labels"]), slot_budget)
+        if used + n > slot_budget and used > 0:
+            yield _finish_pack(cur, metas, used, slot_budget)
+            cur, metas, used = {k: [] for k in EVAL_KEYS}, [], 0
+        for k in EVAL_KEYS:
+            v = np.asarray(item[k])
+            cur[k].append(v[:n] if k != "labels" else
+                          v[:n].astype(np.int32))
+        metas.append((item, used, n))
+        used += n
+    if used > 0:
+        yield _finish_pack(cur, metas, used, slot_budget)
+
+
+def _finish_pack(cur, metas, used, budget):
+    batch = {k: _pad_slots(cur[k], budget) for k in EVAL_KEYS}
+    valid = np.zeros((budget,), np.float32)
+    valid[:used] = 1.0
+    batch["sample_valid"] = valid
+    return batch, metas
+
+
+def _prefetch_items(builder, indices, depth: int = 16, workers: int = 6):
+    """Read builder items through a thread pool, yielding in dataset order:
+    a window of ``depth`` items in flight across ``workers`` threads, so
+    decodes and crops overlap each other and the device steps (zlib and
+    numpy release the GIL for their heavy parts)."""
+    it = iter(indices)
+    with ThreadPoolExecutor(max_workers=workers) as ex:
+        window: deque = deque()
+        for i in itertools.islice(it, depth):
+            window.append(ex.submit(builder.__getitem__, i))
+        while window:
+            item = window.popleft().result()
+            nxt = next(it, None)
+            if nxt is not None:
+                window.append(ex.submit(builder.__getitem__, nxt))
+            yield item
+
+
+def _fetch_async(out: dict):
+    """Start the device→host copy of a batch's poses: one concatenated
+    (N, 12 or 13) f32 buffer copied without blocking into pinned memory,
+    and a CUDA event after the copy; on the CPU the buffer itself and no
+    event. Returns (host tensor, event or None)."""
+    n = out["rotations"].shape[0]
+    small = [out["rotations"].reshape(n, 9).float(),
+             out["translations"].float()]
+    if "pnp_valid" in out:
+        small.append(out["pnp_valid"].float()[:, None])
+    packed = torch.cat(small, dim=1)
+    if packed.device.type != "cuda":
+        return packed, None
+    host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+    host.copy_(packed, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return host, event
+
+
+def _unpack_outputs(small: np.ndarray, had_pnp: bool) -> dict:
+    n = small.shape[0]
+    out = {"rotations": small[:, :9].reshape(n, 3, 3),
+           "translations": small[:, 9:12]}
+    if had_pnp:
+        out["pnp_valid"] = small[:, 12] > 0.5
+    return out
+
+
+def evaluate_dataset(trainer, builder, metric, *, slot_budget: int = 16,
+                     limit: int | None = None, collect_results: bool = False,
+                     progress_every: int = 50,
+                     progress: Callable = print,
+                     pose_graph_metric=None) -> tuple[dict, list]:
+    """Batched eval over a TestBatchBuilder on the trainer's device.
+
+    Packs images into ``slot_budget``-slot batches, refines each with
+    ``trainer.predict(sync=False)``, matches predictions to GT per image on
+    the host (``metric.process`` with the image's original K) and, with
+    ``collect_results``, keeps each image's prediction for the BOP writer.
+    The first ``limit`` images are evaluated. Returns ``(metric.compute(),
+    results)``. ``pose_graph_metric`` (the scene pose-graph pass) is not
+    ported yet and raises ``ValueError``.
+    """
+    if pose_graph_metric is not None:
+        raise ValueError("the scene pose-graph pass is not ported yet")
+    total = len(builder) if limit is None else min(limit, len(builder))
+    indices = range(total)
+    results = []
+    n_images = 0
+    packed = pack_eval_batches(_prefetch_items(builder, indices), slot_budget)
+
+    def consume(host, event, had_pnp, metas):
+        nonlocal n_images
+        if event is not None:
+            event.synchronize()             # this batch's copy, no later one
+        out = _unpack_outputs(host.numpy(), had_pnp)
+        for item, start, n in metas:
+            pred = {"labels": np.asarray(item["labels"][:n]),
+                    "rotations": out["rotations"][start:start + n],
+                    "translations": out["translations"][start:start + n],
+                    "scores": np.ones(n, np.float32)}
+            if collect_results:
+                results.append({"scene_id": item["scene_id"],
+                                "img_id": item["img_id"], **pred})
+            if "gt_rotations" in item:
+                gt = {"labels": item["gt_labels"],
+                      "rotations": item["gt_rotations"],
+                      "translations": item["gt_translations"]}
+                metric.process(pred, gt, k=item["ori_k"])
+            n_images += 1
+            if progress_every and n_images % progress_every == 0:
+                progress(f"[{n_images}/{len(indices)}]", flush=True)
+
+    # two-batch lag: the host consumes the oldest batch while the device
+    # runs the two after it
+    pending: deque = deque()
+    for batch, metas in packed:
+        out = trainer.predict({k: batch[k] for k in EVAL_KEYS},
+                              keys=("rotations", "translations", "pnp_valid"),
+                              sync=False)
+        pending.append((*_fetch_async(out), "pnp_valid" in out, metas))
+        if len(pending) > 2:
+            consume(*pending.popleft())
+    while pending:
+        consume(*pending.popleft())
+    return metric.compute(), results
 
 
 def pose_errors(rotations: torch.Tensor, translations: torch.Tensor,

@@ -108,48 +108,66 @@ def build_model(cfg: Config, device: str | torch.device = "cuda",
     return model.to(dev).eval()
 
 
+def normalization(cfg: Config, device: str | torch.device):
+    """``cfg``'s normalisation mean and std (0-255 scale) as f32 tensors on
+    ``device``. The steps make them once, when they are built: a tensor
+    made from host values inside a step would wait for the device."""
+    return tuple(torch.tensor(v, dtype=torch.float32, device=device)
+                 for v in (cfg.data.normalize_mean, cfg.data.normalize_std))
+
+
 def render_at_pose(renderer: Renderer, rotations, translations, k, labels,
                    normalize_mean, normalize_std):
     """Render and normalise: (images (N, H, W, 3), depth (N, H, W), mask
-    (N, H, W) float); mean/std are on the 0-255 scale."""
+    (N, H, W) float); mean/std are on the 0-255 scale, tuples or the
+    tensors of :func:`normalization`."""
     out = renderer(rotations, translations, k, labels)
     dev = out["depth"].device
-    mean = torch.tensor(normalize_mean, dtype=torch.float32, device=dev) / 255.0
-    std = torch.tensor(normalize_std, dtype=torch.float32, device=dev) / 255.0
+    mean = torch.as_tensor(normalize_mean, dtype=torch.float32,
+                           device=dev) / 255.0
+    std = torch.as_tensor(normalize_std, dtype=torch.float32,
+                          device=dev) / 255.0
     images = (out["images"] - mean) / std
     return images, out["depth"], out["mask"].float()
 
 
-def device_normalize_images(images: torch.Tensor, cfg: Config) -> torch.Tensor:
-    """(u8 − mean)/std on the device for uint8 crops; float images pass."""
+def device_normalize_images(images: torch.Tensor, norm) -> torch.Tensor:
+    """(u8 − mean)/std on the device for uint8 crops; float images pass.
+    ``norm``: the (mean, std) of :func:`normalization`, or a ``Config``
+    (whose constants are then copied from the host)."""
     if images.dtype == torch.uint8:
-        mean = torch.tensor(cfg.data.normalize_mean, dtype=torch.float32,
-                            device=images.device)
-        std = torch.tensor(cfg.data.normalize_std, dtype=torch.float32,
-                           device=images.device)
+        if isinstance(norm, Config):
+            norm = normalization(norm, images.device)
+        mean, std = norm
         return (images.float() - mean) / std
     return images
 
 
 def _to_device(v, dev: torch.device) -> torch.Tensor:
+    """A batch entry on ``dev``; host arrays go to a CUDA device through
+    pinned memory without waiting for it."""
     if isinstance(v, torch.Tensor):
-        return v.to(dev)
-    return torch.from_numpy(np.array(v)).to(dev)
+        t = v
+    else:
+        t = torch.from_numpy(np.array(v))
+    if dev.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t.to(dev)
 
 
 def _eval_step_core(model: SCFlowRefiner | RAFTRefiner, renderer: Renderer,
                     cfg: Config, dev: torch.device):
+    norm = normalization(cfg, dev)
 
     @torch.inference_mode()
     def eval_step(batch: dict) -> dict:
         model.eval()        # a train step in between leaves it in train mode
         batch = {k: _to_device(v, dev) for k, v in batch.items()}
-        real = device_normalize_images(batch["real_images"], cfg)
+        real = device_normalize_images(batch["real_images"], norm)
         labels = batch["labels"].long()
         rendered, depth, _ = render_at_pose(
             renderer, batch["ref_rotations"], batch["ref_translations"],
-            batch["k"], labels, cfg.data.normalize_mean,
-            cfg.data.normalize_std)
+            batch["k"], labels, *norm)
         if isinstance(model, RAFTRefiner):
             flows, masks = model(rendered, real, iters=cfg.model.test_iters)
             solved = solve_pose_from_flow(
@@ -231,17 +249,18 @@ def make_panel_step(model: SCFlowRefiner, renderer: Renderer, cfg: Config,
     renderer = dataclasses.replace(renderer,
                                    mesh_bank=renderer.mesh_bank.to(dev))
     max_flow = cfg.model.max_flow
-    mean = torch.tensor(cfg.data.normalize_mean, device=dev) / 255.0
-    std = torch.tensor(cfg.data.normalize_std, device=dev) / 255.0
+    norm = normalization(cfg, dev)
+    mean, std = (v / 255.0 for v in norm)
 
     @torch.inference_mode()
     def panel_step(batch: dict) -> dict:
         model.eval()
         batch = {k: _to_device(v, dev) for k, v in batch.items()}
+        batch["real_images"] = device_normalize_images(batch["real_images"],
+                                                       norm)
         rendered, depth, rmask = render_at_pose(
             renderer, batch["ref_rotations"], batch["ref_translations"],
-            batch["k"], batch["labels"].long(), cfg.data.normalize_mean,
-            cfg.data.normalize_std)
+            batch["k"], batch["labels"].long(), *norm)
         real, gt_flow, _ = _loss_targets(dict(batch, rendered_depths=depth),
                                          cfg)
         outputs = model(rendered, real, batch["ref_rotations"],
@@ -412,16 +431,18 @@ def raft_loss(model: RAFTRefiner, batch: dict, points_bank: PointsBank,
     return loss, metrics, (flows, masks)
 
 
-def _train_cycle(model, renderer, points_bank, cfg, optimizer, batch):
+def _train_cycle(model, renderer, points_bank, cfg, optimizer, batch, norm):
     """Render at the batch's reference pose, take the loss, its gradient
-    and one clipped AdamW update: (metrics incl. grad_norm, outputs)."""
+    and one clipped AdamW update: (metrics incl. grad_norm, outputs).
+    ``norm``: the step's :func:`normalization` constants."""
     with torch.no_grad():
         rendered, depth, mask = render_at_pose(
             renderer, batch["ref_rotations"], batch["ref_translations"],
-            batch["k"], batch["labels"].long(), cfg.data.normalize_mean,
-            cfg.data.normalize_std)
+            batch["k"], batch["labels"].long(), *norm)
     full = dict(batch, rendered_images=rendered, rendered_depths=depth,
-                rendered_masks=mask)
+                rendered_masks=mask,
+                real_images=device_normalize_images(batch["real_images"],
+                                                    norm))
     loss_fn = raft_loss if isinstance(model, RAFTRefiner) else scflow_loss
     loss, metrics, outputs = loss_fn(model, full, points_bank, cfg,
                                      train=True)
@@ -438,12 +459,12 @@ def _train_cycle(model, renderer, points_bank, cfg, optimizer, batch):
     return {k: v.detach() for k, v in metrics.items()}, outputs
 
 
-def _train_setup(model, renderer, points_bank, device):
+def _train_setup(model, renderer, points_bank, cfg, device):
     dev = resolve_device(device)
     model.to(dev).train()
     renderer = dataclasses.replace(renderer,
                                    mesh_bank=renderer.mesh_bank.to(dev))
-    return dev, renderer, points_bank.to(dev)
+    return dev, renderer, points_bank.to(dev), normalization(cfg, dev)
 
 
 def make_train_step(model: SCFlowRefiner | RAFTRefiner, renderer: Renderer,
@@ -456,13 +477,13 @@ def make_train_step(model: SCFlowRefiner | RAFTRefiner, renderer: Renderer,
     the device in place) and the optimizer (built by :func:`make_optimizer` over its parameters)
     change in place; the step returns its metrics, ``grad_norm`` (before the
     clip) among them. Raises if CUDA is asked for and absent."""
-    dev, renderer, points_bank = _train_setup(model, renderer, points_bank,
-                                              device)
+    dev, renderer, points_bank, norm = _train_setup(model, renderer,
+                                                    points_bank, cfg, device)
 
     def train_step(batch: dict) -> dict:
         batch = {k: _to_device(v, dev) for k, v in batch.items()}
         metrics, _ = _train_cycle(model, renderer, points_bank, cfg,
-                                  optimizer, batch)
+                                  optimizer, batch, norm)
         return metrics
 
     return train_step
@@ -480,15 +501,15 @@ def make_multi_cycle_train_step(model: SCFlowRefiner, renderer: Renderer,
     if isinstance(model, RAFTRefiner):
         raise ValueError("multi-cycle training needs in-loop poses "
                          "(SCFlow family only)")
-    dev, renderer, points_bank = _train_setup(model, renderer, points_bank,
-                                              device)
+    dev, renderer, points_bank, norm = _train_setup(model, renderer,
+                                                    points_bank, cfg, device)
 
     def train_step(batch: dict) -> dict:
         batch = {k: _to_device(v, dev) for k, v in batch.items()}
         merged = {}
         for i in range(cycles):
             metrics, outputs = _train_cycle(model, renderer, points_bank, cfg,
-                                            optimizer, batch)
+                                            optimizer, batch, norm)
             merged[f"cycle{i}_loss"] = metrics["loss"]
             batch = dict(batch,
                          ref_rotations=outputs.rotations[-1].detach(),

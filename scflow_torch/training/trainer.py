@@ -17,10 +17,11 @@ import os
 import time
 from collections.abc import Callable, Iterator
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..models.refiner import RAFTRefiner
+from ..models.refiner import RAFTRefiner, SCFlowRefiner
 from ..rendering.renderer import Renderer
 from .checkpoint import (load_torch_checkpoint, restore_checkpoint,
                          save_checkpoint)
@@ -31,6 +32,10 @@ from .steps import (_updates_done, build_model, init_weights, make_eval_step,
                     make_multi_cycle_train_step, make_multi_pass_eval_step,
                     make_optimizer, make_panel_step, make_train_step,
                     onecycle_lr)
+
+
+def _on_device(x) -> bool:
+    return isinstance(x, torch.Tensor) and x.device.type != "cpu"
 
 
 @dataclasses.dataclass
@@ -225,7 +230,21 @@ class Trainer:
         (default the poses, and ``pnp_valid`` for RAFT) as numpy arrays;
         the dense outputs stay on the device unless asked for. With
         ``sync=False`` they are returned as device tensors, not copied to
-        the host."""
+        the host.
+
+        An SCFlow model in bf16 gets float crops cast to bf16 on the host,
+        before the upload (half its bytes; its encoder casts them to bf16
+        anyway, so the results are the same); uint8 crops go as they are.
+        The RAFT family runs in f32 whatever the dtype, so its crops are
+        not cast (the JAX package casts them in that config too)."""
+        real = batch.get("real_images")
+        if (self.cfg.model.dtype == "bfloat16"
+                and isinstance(self.model, SCFlowRefiner)
+                and real is not None and not _on_device(real)):
+            real = torch.as_tensor(real if isinstance(real, torch.Tensor)
+                                   else np.asarray(real))
+            if real.dtype != torch.uint8:
+                batch = dict(batch, real_images=real.to(torch.bfloat16))
         out = self.eval_step(batch)
         if keys is None:
             keys = ("rotations", "translations", "pnp_valid")

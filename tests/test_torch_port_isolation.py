@@ -1,9 +1,10 @@
 """The PyTorch port stands alone: no JAX, no scflow_tpu, no silent CPU.
 
 Every module of ``scflow_torch`` and ``chip_smoke`` must import in a
-process where ``jax``, ``flax``, ``optax`` and ``scflow_tpu`` cannot be
-imported, and every entry point must refuse ``device="cuda"`` when there
-is no GPU instead of falling back to the CPU."""
+process where ``jax``, ``flax``, ``optax``, ``scflow_tpu``, ``cv2`` and
+``PIL`` cannot be imported (a GPU host may have neither cv2 nor PIL),
+and every entry point must refuse ``device="cuda"`` when there is no GPU
+instead of falling back to the CPU."""
 import os
 import re
 import subprocess
@@ -14,7 +15,7 @@ import pytest
 import torch
 
 REPO = Path(__file__).resolve().parents[1]
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "scflow_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "scflow_tpu", "cv2", "PIL")
 
 IMPORT_ALL = f"""
 import importlib, pkgutil, sys
@@ -51,8 +52,11 @@ def test_no_jax_import_in_source(path):
     assert not re.search(pattern, text, re.M), path
 
 
-def test_entry_points_refuse_missing_gpu(monkeypatch):
-    from scflow_torch.rendering import Renderer, make_test_meshes
+def test_entry_points_refuse_missing_gpu(monkeypatch, tmp_path):
+    from scflow_torch.rendering import (Renderer, load_mesh_dir,
+                                        make_test_meshes)
+    from scflow_torch.test import main as test_main
+    from scflow_torch.tools.make_synthetic_bop import main as make_bop
     from scflow_torch.training import (Config, ModelConfig, RenderConfig,
                                        build_model, build_points_bank,
                                        make_eval_step,
@@ -90,8 +94,14 @@ def test_entry_points_refuse_missing_gpu(monkeypatch):
                  lambda: Trainer(cfg, renderer, points),
                  lambda: Trainer(cfg, renderer, points, device="cuda:0"),
                  lambda: main(["--synthetic", "--steps", "1",
-                               "--image-size", "64", "--num-classes", "2"])):
+                               "--image-size", "64", "--num-classes", "2"]),
+                 lambda: load_mesh_dir(str(tmp_path)),
+                 lambda: test_main(["--data-root", "d", "--ref-annots-root",
+                                    "r", "--image-list", "l", "--mesh-dir",
+                                    str(tmp_path)]),
+                 lambda: make_bop(["--out", str(tmp_path / "bop")])):
         with pytest.raises(RuntimeError, match="no CUDA GPU"):
             call()
     assert next(model.parameters()).device.type == "cpu"
     assert next(raft.parameters()).device.type == "cpu"
+    assert not (tmp_path / "bop").exists()      # refused before writing
