@@ -81,6 +81,21 @@ Phases (each prints one JSON line; any failed check raises):
           records within EVAL_ERR_RTOL or what the pose gap can move
           them). Also one 640×480 Paeth-filtered PNG
           decoded by the port's reader, timed.
+  train_bop  training from a BOP tree on disk: ``make_synthetic_bop``
+          writes a train_real split (48 images at 640×480, 3–6 of 21
+          classes) and an 8-image test split on the card, laid out as the
+          ``scflow_ycbv_real`` recipe reads them, and 4 PNG backgrounds;
+          ``scflow_torch.train.main --config scflow_ycbv_real`` (batch 16,
+          256², 8 iterations, f32, color augmentation, backgrounds and
+          both occlusions at p 0.3) runs 6 steps with the on-disk eval
+          every 3, then ``--scene`` (4 images × 4 slots) 2 steps: finite
+          losses, launches per fit step (K1 1, K2 30 and 30), the eval's
+          ``num_instances`` = the test split's objects, neither cv2 nor PIL
+          imported, one disk batch's loss and gradient against the CPU
+          port (``train_parity``'s bound); fit-step time beside the bare
+          step's, and the loader's samples/s alone and through
+          ``prefetch`` with ms per sample to decode, crop and augment, on
+          the tool's frames and on Paeth-filtered copies.
 Then the ``kernels`` line (K1, the K2 forward and backward in f32 and in
 bf16, each with its launches on every path), the card line from nvidia-smi
 and, last, ``{"ok": true, "device": {...}}``. Exits non-zero without a
@@ -134,6 +149,14 @@ EVAL_ERR_RTOL = 1e-3
 # objects on average) and the CLI's packing budget
 BOP_IMAGES, BOP_FRAME, BOP_OBJECTS, BOP_BUDGET = 48, (480, 640), (3, 6), 16
 BOP_CPU_IMAGES = 2
+# train_bop: a train_real split of YCB-V's frame and a test split with
+# initial poses, laid out as the scflow_ycbv_real recipe reads them; PNG
+# backgrounds; the recipe run's steps and eval interval, the scene run's;
+# batches timed for the loader alone and through prefetch
+TRAIN_BOP_IMAGES, TRAIN_BOP_TEST_IMAGES, TRAIN_BOP_BACKGROUNDS = 48, 8, 4
+TRAIN_BOP_STEPS, TRAIN_BOP_EVERY, TRAIN_BOP_SCENE_STEPS = 6, 3, 2
+TRAIN_BOP_OCCLUSION_P = 0.3
+LOADER_BATCHES = {"filter0": (2, 6), "paeth": (1, 2)}   # (alone, prefetch)
 # a step after resume, live vs restored state: the loss is bit-equal (a
 # deterministic forward); cuDNN's backward may sum in another order, so
 # the parameters are held to Adam's step bound (2.5 lr per element) and
@@ -1580,6 +1603,301 @@ def phase_eval_bop() -> tuple:
     return k1, k2
 
 
+def ycbv_layout(train: str, test: str, root: str) -> None:
+    """Symlink two trees of ``make_synthetic_bop`` (a ``train_real`` and a
+    ``test`` split) into the paths the YCB-V recipes read under ``root``."""
+    import os
+
+    ycbv = os.path.join(root, "data", "ycbv")
+    os.makedirs(os.path.join(ycbv, "image_lists"))
+    for src, dst in ((f"{train}/train_real", "train_real"),
+                     (f"{test}/test", "test"), (f"{train}/models",
+                                                "models_1024"),
+                     (f"{train}/image_lists/train_real.txt",
+                      "image_lists/train_real.txt"),
+                     (f"{test}/image_lists/test.txt", "image_lists/test.txt")):
+        os.symlink(src, os.path.join(ycbv, dst))
+    os.makedirs(os.path.join(root, "data", "initial_poses"))
+    os.symlink(f"{test}/init_poses",
+               os.path.join(root, "data", "initial_poses", "ycbv_posecnn"))
+
+
+def paeth_copy(train: str, out: str) -> str:
+    """``train``'s train_real split with every frame re-encoded by
+    :func:`paeth_png` (masks and annotations linked); returns its root."""
+    import os
+
+    from scflow_torch.data.imageio import imread
+
+    seq = os.path.join(train, "train_real", "000001")
+    dst = os.path.join(out, "000001")
+    os.makedirs(os.path.join(dst, "rgb"))
+    for name in os.listdir(seq):
+        if name != "rgb":
+            os.symlink(os.path.join(seq, name), os.path.join(dst, name))
+    for name in os.listdir(os.path.join(seq, "rgb")):
+        with open(os.path.join(dst, "rgb", name), "wb") as f:
+            f.write(paeth_png(imread(os.path.join(seq, "rgb", name))))
+    return out
+
+
+def measure_loader(builder, alone: int, through_prefetch: int) -> dict:
+    """Samples/s of ``builder()`` called alone, and through ``prefetch``'s
+    3 workers (time to the last of ``through_prefetch`` batches); the
+    alone run's host ms per sample to decode (frames, masks,
+    backgrounds), crop, and augment."""
+    from unittest import mock
+
+    import scflow_torch.data.bop as bop_mod
+    import scflow_torch.data.loader as loader_mod
+
+    spent = {"decode": [], "crop": [], "augment": []}
+
+    def timed(kind, fn):
+        def wrapped(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                spent[kind].append(time.perf_counter() - t0)
+        return wrapped
+
+    targets = [(bop_mod, "imread", "decode"), (loader_mod, "imread", "decode"),
+               (loader_mod, "crop_resize_pad", "crop")]
+    targets += [(loader_mod, name, "augment") for name in (
+        "random_background", "random_occlusion", "random_occlusion_v2",
+        "default_train_augs")]
+    patches = [mock.patch.object(mod, name, timed(kind, getattr(mod, name)))
+               for mod, name, kind in targets]
+    for p in patches:
+        p.start()
+    try:
+        n = builder.cfg.data.batch_size
+        t0 = time.perf_counter()
+        for _ in range(alone):
+            builder()
+        alone_s = time.perf_counter() - t0
+        per_sample = {f"{k}_ms_per_sample": 1e3 * sum(v) / (alone * n)
+                      for k, v in spent.items()}
+        batches = loader_mod.prefetch(builder)
+        t0 = time.perf_counter()
+        for _ in range(through_prefetch):
+            next(batches)
+        prefetch_s = time.perf_counter() - t0
+        batches.close()
+    finally:
+        for p in patches:
+            p.stop()
+    return dict(samples_per_s_alone=alone * n / alone_s,
+                batch_s_alone=alone_s / alone,
+                samples_per_s_prefetch=through_prefetch * n / prefetch_s,
+                batch_s_prefetch=prefetch_s / through_prefetch,
+                batches=[alone, through_prefetch], **per_sample)
+
+
+def train_bop_runs(root: str, base: list, patches: list, timed, losses):
+    """The recipe run (eval on the test split) and the scene run of
+    train_bop, in the layout's directory with ``patches`` applied; checks
+    steps, finite losses, launches per fit step and that neither cv2 nor
+    PIL was imported."""
+    import torch
+
+    import scflow_torch.train as cli
+
+    for p in patches:
+        p.start()
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer = cli.main(base + [
+            "--steps", str(TRAIN_BOP_STEPS), "--eval-every",
+            str(TRAIN_BOP_EVERY), "--eval-limit",
+            str(TRAIN_BOP_TEST_IMAGES), "--work-dir", f"{root}/run"])
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = counts()
+        steps = timed.records.pop("train")
+        recipe_losses, losses[:] = torch.stack(losses).cpu(), []
+        t0 = time.perf_counter()
+        scene = cli.main(base + [
+            "--scene", "--scene-images", "4", "--slots-per-image", "4",
+            "--steps", str(TRAIN_BOP_SCENE_STEPS), "--work-dir",
+            f"{root}/scene"])
+        torch.cuda.synchronize()
+        scene_s = time.perf_counter() - t0
+        scene_steps = timed.records.pop("train")
+        scene_losses = torch.stack(losses).cpu()
+    finally:
+        for p in patches:
+            p.stop()
+    check(trainer.step == TRAIN_BOP_STEPS
+          and scene.step == TRAIN_BOP_SCENE_STEPS,
+          f"train_bop: {trainer.step} and {scene.step} steps")
+    check(bool(torch.isfinite(recipe_losses).all()
+               and torch.isfinite(scene_losses).all()),
+          f"train_bop: losses {recipe_losses.tolist()} "
+          f"{scene_losses.tolist()}")
+    for _, _, n in steps + scene_steps:
+        check(n == (1, 30, 30), f"train_bop: launches per fit step {n}")
+    check("cv2" not in sys.modules and "PIL" not in sys.modules,
+          "train_bop: cv2 or PIL was imported")
+    with open(f"{root}/run/train_log.jsonl") as f:
+        evals = [r for r in map(json.loads, f) if "eval/num_instances" in r]
+    return dict(trainer=trainer, scene=scene, fit_s=fit_s, scene_s=scene_s,
+                launches=launches, steps=steps, scene_steps=scene_steps,
+                recipe_losses=recipe_losses, scene_losses=scene_losses,
+                evals=evals)
+
+
+def phase_train_bop(train_ms: float, smi: str) -> tuple:
+    """Training from a BOP tree on disk through the training CLI's recipe
+    path; returns the recipe run's launches of K1, the K2 forward and
+    backward. ``train_ms``: the train phase's median bare step."""
+    import copy
+    import dataclasses
+    import os
+    import tempfile
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    import scflow_torch.train as cli
+    import scflow_torch.training.trainer as trainer_mod
+    from scflow_torch import configs
+    from scflow_torch.data.bop import SuperviseTrainDataset
+    from scflow_torch.data.loader import TrainBatchBuilder
+    from scflow_torch.tools.make_synthetic_bop import main as make_tree
+    from scflow_torch.utils.tb_writer import encode_png
+
+    t_phase = time.perf_counter()
+    timed, builders, losses = Timed(), [], []
+
+    def capture_prefetch(builder):
+        builders.append(builder)
+        return prefetch(builder)
+
+    def loss_kept(step):
+        def kept(batch):
+            out = step(batch)
+            losses.append(out["loss"])
+            return out
+        return kept
+
+    def timed_train_step(*args, **kw):
+        return timed("train", loss_kept(make_train_step(*args, **kw)))
+
+    prefetch, make_train_step = cli.prefetch, trainer_mod.make_train_step
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="scflow_train_bop_") as root:
+        tree_args = ["--num-classes", str(NUM_CLASS), "--height",
+                     str(BOP_FRAME[0]), "--width", str(BOP_FRAME[1]),
+                     "--min-objects", str(BOP_OBJECTS[0]), "--max-objects",
+                     str(BOP_OBJECTS[1]), "--device", "cuda"]
+        t0 = time.perf_counter()
+        train = make_tree(["--out", f"{root}/train", "--split", "train_real",
+                           "--num-images", str(TRAIN_BOP_IMAGES), "--seed",
+                           "0", *tree_args])
+        test = make_tree(["--out", f"{root}/test", "--split", "test",
+                          "--num-images", str(TRAIN_BOP_TEST_IMAGES),
+                          "--seed", "1", *tree_args])
+        rng = np.random.default_rng(0)
+        os.makedirs(f"{root}/bg")
+        for i in range(TRAIN_BOP_BACKGROUNDS):
+            with open(f"{root}/bg/{i:06d}.png", "wb") as f:
+                f.write(encode_png(rng.integers(0, 256, (*BOP_FRAME, 3),
+                                                np.uint8)))
+        ycbv_layout(f"{root}/train", f"{root}/test", f"{root}/layout")
+        write_s = time.perf_counter() - t0
+
+        # the recipe, with backgrounds and both occlusions drawn
+        recipe = configs.scflow_ycbv_real()
+        recipe.config.data = dataclasses.replace(
+            recipe.config.data, background_dir=f"{root}/bg",
+            occlusion_p=TRAIN_BOP_OCCLUSION_P,
+            occlusion_v2_p=TRAIN_BOP_OCCLUSION_P)
+        patches = [
+            mock.patch.dict(configs.RECIPES,
+                            scflow_ycbv_real=lambda: copy.deepcopy(recipe)),
+            mock.patch.object(cli, "prefetch", capture_prefetch),
+            mock.patch.object(trainer_mod, "make_train_step",
+                              timed_train_step),
+            mock.patch.object(cli, "evaluate_dataset", timed(
+                "eval", cli.evaluate_dataset))]
+        base = ["--config", "scflow_ycbv_real", "--device", "cuda"]
+        os.chdir(f"{root}/layout")          # the recipe's relative paths
+        try:
+            out = train_bop_runs(root, base, patches, timed, losses)
+            # one disk batch: the card's train step against the CPU port's
+            builder = builders[0]
+            batch = {k: torch.from_numpy(v).cuda()
+                     for k, v in builder().items()}
+            parity = train_parity(out["trainer"].cfg, out["trainer"].renderer,
+                                  out["trainer"].points_bank, batch)
+            # the loader alone and through prefetch, on the tool's
+            # filter-0 frames and on a copy re-encoded with Paeth rows
+            loader = {"filter0": measure_loader(
+                builder, *LOADER_BATCHES["filter0"])}
+            paeth = SuperviseTrainDataset(
+                paeth_copy(f"{root}/train", f"{root}/paeth"),
+                f"{root}/train/image_lists/train_real.txt",
+                class_names=builder.dataset.class_names,
+                min_visib_fract=builder.dataset.min_visib_fract)
+            loader["paeth"] = measure_loader(
+                TrainBatchBuilder(paeth, builder.cfg, builder.mesh_points,
+                                  builder.diameters), *LOADER_BATCHES["paeth"])
+        finally:
+            os.chdir(cwd)
+    check(out["scene"].cfg.data.batch_size == 16
+          and out["scene"].cfg.data.scene_mode, "train_bop: scene batch")
+    evals = out["evals"]
+    check(len(evals) == TRAIN_BOP_STEPS // TRAIN_BOP_EVERY
+          and all(r["eval/num_instances"] == test["objects"] for r in evals),
+          f"train_bop: eval records {evals}, {test['objects']} objects")
+    steps, scene_steps = out["steps"], out["scene_steps"]
+
+    # a fit step: from one train step's start to the next, less any eval
+    # between them
+    starts = [t0 for t0, _, _ in steps]
+    evals_at = timed.records["eval"]
+    fit_step_ms = [1e3 * (b - a - sum(e1 - e0 for e0, e1, _ in evals_at
+                                      if a <= e0 < b))
+                   for a, b in zip(starts, starts[1:])]
+    step_in_fit_ms = [1e3 * (t1 - t0) for t0, t1, _ in steps]
+    loader_batch_ms = 1e3 * loader["filter0"]["batch_s_prefetch"]
+    bare = statistics.median(step_in_fit_ms)
+    emit(phase="train_bop", card=smi, recipe="scflow_ycbv_real",
+         batch=TRAIN_BATCH, image=list(SIZE), classes=NUM_CLASS, iters=ITERS,
+         dtype="float32", frame=list(BOP_FRAME), train_images=train["images"],
+         train_objects=train["objects"], test_images=test["images"],
+         test_objects=test["objects"], backgrounds=TRAIN_BOP_BACKGROUNDS,
+         occlusion_p=TRAIN_BOP_OCCLUSION_P, tree_write_s=write_s,
+         steps=TRAIN_BOP_STEPS, eval_every=TRAIN_BOP_EVERY,
+         fit_seconds=out["fit_s"],
+         fit_step_ms_median=statistics.median(fit_step_ms),
+         fit_step_ms=fit_step_ms, train_step_in_fit_ms=step_in_fit_ms,
+         train_phase_step_ms_median=train_ms,
+         eval_ms=timed.ms("eval"),
+         eval={k: v for k, v in evals[-1].items() if k != "step"},
+         losses=out["recipe_losses"].tolist(),
+         launches=list(out["launches"]),
+         launches_per_fit_step=dict(zip(
+             ("rasterize_tiles", "instance_norm_fwd", "instance_norm_bwd"),
+             steps[0][2])),
+         scene={"images": 4, "slots_per_image": 4,
+                "steps": TRAIN_BOP_SCENE_STEPS, "seconds": out["scene_s"],
+                "step_ms": [1e3 * (t1 - t0) for t0, t1, _ in scene_steps],
+                "losses": out["scene_losses"].tolist()},
+         cpu_parity=parity, loader=loader,
+         pace=("loader" if loader_batch_ms > bare else "step"),
+         loader_batch_ms_prefetch=loader_batch_ms,
+         train_step_in_fit_ms_median=bare,
+         step_in_fit_over_bare_step=bare / train_ms,
+         cv2_or_pil_imported=False,
+         phase_seconds=time.perf_counter() - t_phase)
+    return out["launches"]
+
+
 def main() -> int:
     import torch
 
@@ -1678,6 +1996,7 @@ def main() -> int:
     raft = phase_raft(renderer, batch)
     raft_train = phase_raft_train(bank)
     eval_bop = phase_eval_bop()
+    train_bop = phase_train_bop(train_ms, smi)
     emit(phase="done", seconds_total=time.perf_counter() - t_start)
 
     # ``launches``: the row's own path (f32 or bf16); beside it every
@@ -1685,18 +2004,20 @@ def main() -> int:
     main_counts = (main_run["k1"], main_run["k2"], 0)
     paths = {"main": main_counts, "bf16": (*bf16, 0), "raft": (*raft, 0),
              "train": train, "trainer": trainer, "train_bf16": train_bf16,
-             "raft_train": raft_train, "eval_bop": (*eval_bop, 0)}
+             "raft_train": raft_train, "eval_bop": (*eval_bop, 0),
+             "train_bop": train_bop}
 
     def by_path(i, names):
         return {p: paths[p][i] for p in names}
 
     k1_row.update(launches=main_run["k1"], launches_by_path=by_path(0, paths))
     fwd_rows[0].update(launches=main_run["k2"], launches_by_path=by_path(
-        1, ("main", "raft", "train", "trainer", "raft_train", "eval_bop")))
+        1, ("main", "raft", "train", "trainer", "raft_train", "eval_bop",
+            "train_bop")))
     fwd_rows[1].update(launches=bf16[1], launches_by_path=by_path(
         1, ("bf16", "train_bf16")))
     bwd_rows[0].update(launches=train[2], launches_by_path=by_path(
-        2, ("train", "trainer", "raft_train")))
+        2, ("train", "trainer", "raft_train", "train_bop")))
     bwd_rows[1].update(launches=train_bf16[2],
                        launches_by_path=by_path(2, ("train_bf16",)))
     rows = [k1_row, *fwd_rows, *bwd_rows]

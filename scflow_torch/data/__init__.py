@@ -1,5 +1,6 @@
-"""Data: synthetic batches for training; the BOP eval readers, crops and
-batch builder (``bop``, ``pipeline``, ``loader``) and the PNG decoder
-(``imageio``) are in their own modules."""
+"""Data: synthetic batches for training; the BOP readers (``bop``,
+``tracking``), crops (``pipeline``), color augmentations (``color_aug``)
+and their cv2 forms (``cvops``), the batch builders and prefetcher
+(``loader``) and the PNG decoder (``imageio``) are in their own modules."""
 from .synthetic import (default_intrinsics, jitter_pose,  # noqa: F401
                         synthetic_batch)

@@ -1,14 +1,23 @@
 """BOP-format dataset readers, host-side numpy (port of
-``scflow_tpu/data/bop.py:22-25, 53-130, 212-280``).
+``scflow_tpu/data/bop.py``).
 
-:class:`RefineDataset` pairs eval/test images with externally supplied
-initial poses, e.g. PoseCNN's (reference datasets/refine.py). The BOP
-layout per sequence directory ``XXXXXX/``: ``rgb/``, ``mask_visib/``,
-``scene_gt.json``, ``scene_gt_info.json``, ``scene_camera.json``; image
-lists are text files of ``sequence/rgb/XXXXXX.png`` paths. Images are read
-by the port's PNG decoder (``data.imageio``), not cv2 or PIL. The training
-readers (``SuperviseTrainDataset``, ``ConcatDataset``) come with the
-training-data slice.
+- :class:`SuperviseTrainDataset` — GT-only training images; reference
+  poses are produced later by pose jitter (reference
+  datasets/supervise_refine.py).
+- :class:`RefineDataset` — eval/test images paired with externally
+  supplied initial poses, e.g. PoseCNN's (reference datasets/refine.py).
+- :class:`ConcatDataset` — several datasets as one.
+
+The BOP layout per sequence directory ``XXXXXX/``: ``rgb/``,
+``mask_visib/``, ``scene_gt.json``, ``scene_gt_info.json``,
+``scene_camera.json``; image lists are text files of
+``sequence/rgb/XXXXXX.png`` paths. Images are read by the port's PNG
+decoder (``data.imageio``), not cv2 or PIL.
+
+One deliberate difference: the port's ``ConcatDataset`` has ``get(index,
+rng)``, which the train batch builders call. The JAX package's has none,
+so its builders stop with an ``AttributeError`` on a concatenated
+dataset.
 """
 from __future__ import annotations
 
@@ -58,6 +67,8 @@ def read_image_list(path: str) -> list[str]:
 class BaseBopDataset:
     """Shared image-list + annotation loading."""
 
+    mask_tmpl = "{seq}/mask_visib/{img:06d}_{idx:06d}.png"
+
     def __init__(self, data_root: str, image_list: str,
                  class_names: tuple, label_mapping: dict | None = None,
                  target_labels: list | None = None):
@@ -100,6 +111,86 @@ class BaseBopDataset:
             if info.get("px_count_visib", 1 << 30) < min_visib_px:
                 return False, -1
         return True, obj_id - 1
+
+
+class SuperviseTrainDataset(BaseBopDataset):
+    """GT-only training dataset: samples ``sample_num`` visible objects per
+    image (with replacement; ``-1`` keeps them all, in order); the
+    pipeline jitters GT into reference poses (reference
+    datasets/supervise_refine.py:108-208)."""
+
+    def __init__(self, data_root: str, image_list: str, class_names: tuple,
+                 sample_num: int = 1, min_visib_fract: float = 0.2,
+                 min_visib_px: int = 0, label_mapping=None,
+                 target_labels=None, seed: int = 0):
+        super().__init__(data_root, image_list, class_names, label_mapping,
+                         target_labels)
+        self.sample_num = sample_num
+        self.min_visib_fract = min_visib_fract
+        self.min_visib_px = min_visib_px
+        self.rng = np.random.default_rng(seed)
+
+    def __getitem__(self, index: int) -> dict | None:
+        return self.get(index)
+
+    def get(self, index: int, rng: np.random.Generator | None = None
+            ) -> dict | None:
+        """Fetch a sample, drawing the object selection from ``rng``
+        (default the dataset's own). Prefetch workers pass their own
+        Generator: the dataset is shared across workers, and numpy
+        Generators are not thread-safe. A missing mask file reads as an
+        empty mask, as in the JAX package."""
+        rng = self.rng if rng is None else rng
+        seq, img_id, img_path = self._parse_path(self.img_files[index])
+        annots = self._sequence_annots(self.data_root, seq)
+        pose_annots, cam, infos = annots.annots_for(img_id)
+
+        rs, ts, labels, bboxes, mask_paths = [], [], [], [], []
+        for i, obj in enumerate(pose_annots):
+            info = infos[i] if infos is not None else None
+            keep, label = self._keep_object(obj["obj_id"], info,
+                                            self.min_visib_fract,
+                                            self.min_visib_px)
+            if not keep:
+                continue
+            rs.append(np.asarray(obj["cam_R_m2c"], np.float32).reshape(3, 3))
+            ts.append(np.asarray(obj["cam_t_m2c"], np.float32).reshape(3))
+            labels.append(label)
+            bb = (np.asarray(info["bbox_obj"], np.float32)
+                  if info is not None else np.zeros(4, np.float32))
+            bboxes.append(np.asarray([bb[0], bb[1], bb[0] + bb[2], bb[1] + bb[3]],
+                                     np.float32))
+            mask_idx = info.get("mask_id", i) if info is not None else i
+            mask_paths.append(osp.join(self.data_root, self.mask_tmpl.format(
+                seq=seq, img=img_id, idx=mask_idx)))
+        if not labels:
+            return None
+
+        n = len(labels)
+        sample_num = n if self.sample_num == -1 else self.sample_num
+        sel = (np.arange(n) if self.sample_num == -1
+               else rng.choice(n, sample_num))
+        k = np.asarray(cam["cam_K"], np.float32).reshape(3, 3)
+
+        image = imread(img_path)
+        masks = []
+        for i in sel:
+            try:
+                masks.append(imread(mask_paths[i], gray=True) > 0)
+            except FileNotFoundError:
+                masks.append(np.zeros(image.shape[:2], bool))
+
+        return {
+            "image": image,
+            "img_path": img_path,
+            "gt_rotations": np.stack([rs[i] for i in sel]),
+            "gt_translations": np.stack([ts[i] for i in sel]),
+            "labels": np.asarray([labels[i] for i in sel], np.int64),
+            "gt_bboxes": np.stack([bboxes[i] for i in sel]),
+            "gt_masks": np.stack(masks),
+            "k": np.repeat(k[None], sample_num, axis=0),
+            "ori_k": k,
+        }
 
 
 class RefineDataset(BaseBopDataset):
@@ -171,3 +262,30 @@ class RefineDataset(BaseBopDataset):
             out["gt_translations"] = np.stack(gt_ts) if gt_ts else np.zeros((0, 3), np.float32)
             out["gt_labels"] = np.asarray(gt_labels, np.int64)
         return out
+
+
+class ConcatDataset:
+    """Concatenation of several datasets (the mmengine ConcatDataset
+    analogue of the fork's real-mix-syn recipe,
+    configs/refine_models/scflow_lumi_piano_real_mix_syn.py:98-129)."""
+
+    def __init__(self, datasets):
+        self.datasets = list(datasets)
+        self._offsets = np.cumsum([0] + [len(d) for d in self.datasets])
+
+    def __len__(self):
+        return int(self._offsets[-1])
+
+    def _locate(self, index: int):
+        i = int(np.searchsorted(self._offsets, index, side="right")) - 1
+        return self.datasets[i], index - int(self._offsets[i])
+
+    def __getitem__(self, index: int):
+        dataset, local = self._locate(index)
+        return dataset[local]
+
+    def get(self, index: int, rng: np.random.Generator | None = None):
+        """The part's ``get(local index, rng)``: the train builders' entry
+        (not in the JAX package, whose builders fail on a concatenation)."""
+        dataset, local = self._locate(index)
+        return dataset.get(local, rng)

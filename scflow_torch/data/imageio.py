@@ -10,8 +10,9 @@ into three channels for a color read, as cv2's ``IMREAD_COLOR`` does.
 
 Interlaced, palette and 16-bit PNGs, and JPEG files, raise a
 ``ValueError`` that names the file: YCB-V's ``test`` and ``train_real``
-splits are 8-bit PNG, and JPEG (BOP ``train_pbr``) comes with the
-training-data slice.
+splits are 8-bit PNG; JPEG (BOP ``train_pbr``, COCO backgrounds) has no
+decoder in the port yet. :func:`check_readable` raises the same error
+from a file's header alone.
 """
 from __future__ import annotations
 
@@ -43,13 +44,42 @@ def imread(path: str, gray: bool = False) -> np.ndarray:
     return np.ascontiguousarray(pixels[..., :3])
 
 
-def decode_png(data: bytes, path: str = "<bytes>") -> tuple[np.ndarray, int]:
-    """Decode PNG bytes → ((H, W, C) uint8 samples, PNG color type)."""
+def check_readable(path: str) -> None:
+    """Raise what :func:`imread` would raise for a file it cannot decode
+    (missing, JPEG, not PNG, interlaced, palette, 16-bit), reading only
+    its signature and header."""
+    with open(path, "rb") as f:
+        head = f.read(33)               # signature + the IHDR chunk
+    _check_signature(head, path)
+    length, kind = struct.unpack(">I4s", head[8:16])
+    if kind != b"IHDR" or length != 13:
+        raise ValueError(f"{path}: PNG without IHDR first")
+    _check_header(struct.unpack(">IIBBBBB", head[16:29]), path)
+
+
+def _check_signature(data: bytes, path: str) -> None:
     if data[:2] == b"\xff\xd8":
-        raise ValueError(f"{path}: JPEG is not decoded without cv2 "
-                         "(only PNG is)")
+        raise ValueError(f"{path}: JPEG is not decoded: the port has no "
+                         "JPEG decoder (only PNG without cv2 or PIL)")
     if data[:8] != PNG_SIGNATURE:
         raise ValueError(f"{path}: not a PNG file")
+
+
+def _check_header(header: tuple, path: str) -> None:
+    _, _, depth, color, _, _, interlace = header
+    if interlace:
+        raise ValueError(f"{path}: interlaced PNG is not supported")
+    if color not in _CHANNELS:
+        raise ValueError(f"{path}: palette PNG (color type {color}) is not "
+                         "supported")
+    if depth != 8:
+        raise ValueError(f"{path}: {depth}-bit PNG is not supported "
+                         "(8-bit only)")
+
+
+def decode_png(data: bytes, path: str = "<bytes>") -> tuple[np.ndarray, int]:
+    """Decode PNG bytes → ((H, W, C) uint8 samples, PNG color type)."""
+    _check_signature(data, path)
     pos, header, idat = 8, None, []
     while pos + 8 <= len(data):
         length, kind = struct.unpack(">I4s", data[pos:pos + 8])
@@ -63,15 +93,8 @@ def decode_png(data: bytes, path: str = "<bytes>") -> tuple[np.ndarray, int]:
             break
     if header is None or not idat:
         raise ValueError(f"{path}: PNG without IHDR or IDAT")
-    width, height, depth, color, _, _, interlace = header
-    if interlace:
-        raise ValueError(f"{path}: interlaced PNG is not supported")
-    if color not in _CHANNELS:
-        raise ValueError(f"{path}: palette PNG (color type {color}) is not "
-                         "supported")
-    if depth != 8:
-        raise ValueError(f"{path}: {depth}-bit PNG is not supported "
-                         "(8-bit only)")
+    _check_header(header, path)
+    width, height, _, color = header[:4]
     bpp = _CHANNELS[color]
     stride = width * bpp
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)

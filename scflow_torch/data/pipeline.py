@@ -1,25 +1,31 @@
-"""Host-side per-object eval pipeline (numpy): pose jitter, the reference
-pose's bbox, and the fused crop → keep-ratio resize → center pad →
-normalise of every object crop (port of ``scflow_tpu/data/pipeline.py:22-103,
-176-181`` and of the JAX package's C++ crop).
+"""Host-side per-object pipeline (numpy): pose jitter, the reference
+pose's bbox, the train crop and the fused eval crop → keep-ratio resize →
+center pad → normalise (port of ``scflow_tpu/data/pipeline.py:22-181``
+and of the JAX package's C++ crop).
 
 Every 2D step is one 3×3 affine ``transform``; the camera intrinsics
 absorb it (K' = T·K, the shipped configs' ``adapt_intrinsic`` mode), so
-poses never change and no PnP runs on the eval path.
+poses never change and no PnP runs on these paths.
 
-The port has one crop path, :func:`crop_resize_pad_batch`, with the
-semantics of ``CropResizePadNormalize`` in ``native/scflow_native.cpp``
-(the path the JAX ``TestBatchBuilder`` takes where cv2 is absent). Its
-patch offset is the C++'s integer ``out/2 - rh/2``; the JAX package's
-Python crop computes it in floats, so the two can place the patch one
-pixel apart when ``rh`` is odd. That is a quirk of the reference; the
-port follows the C++.
+Two crops, one per builder, as the JAX package runs them:
+
+- :func:`crop_resize_pad` (train) has the semantics of the JAX package's
+  Python crop on cv2's bilinear resize (``cvops.resize_linear``, held to
+  cv2), including its float pad offset ``int(out/2 - rh/2)``.
+- :func:`crop_resize_pad_batch` (eval) has the semantics of
+  ``CropResizePadNormalize`` in ``native/scflow_native.cpp`` (the path
+  the JAX ``TestBatchBuilder`` takes where cv2 is absent). Its patch
+  offset is the C++'s integer ``out/2 - rh/2``, so the two crops can
+  place a patch one pixel apart when ``rh`` is odd, as in the reference.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 
 from ..training.config import JitterConfig
+from .cvops import resize_linear
 
 
 def _euler_zyx_matrix(angles_deg):
@@ -82,6 +88,15 @@ def project_bbox(points_3d: np.ndarray, k: np.ndarray, rotation: np.ndarray,
     return bbox
 
 
+@dataclasses.dataclass
+class CropResult:
+    patch: np.ndarray            # (S, S, 3) uint8
+    transform: np.ndarray        # (3, 3) accumulated 2D affine
+    k_new: np.ndarray            # (3, 3) adapted intrinsics
+    scale_factor: float
+    mask_patch: np.ndarray | None = None
+
+
 def expand_bbox(bbox: np.ndarray, size_ratio: float = 1.0,
                 aspect_ratio: float = 1.0) -> tuple[int, int, int, int]:
     """Square-ify + expand an xyxy bbox into integer crop corners — the
@@ -95,6 +110,61 @@ def expand_bbox(bbox: np.ndarray, size_ratio: float = 1.0,
     bw, bh = bw * size_ratio, bh * size_ratio
     return (int(xc - bw / 2), int(yc - bh / 2),
             int(xc + bw / 2), int(yc + bh / 2))
+
+
+def crop_resize_pad(image: np.ndarray, bbox: np.ndarray, k: np.ndarray,
+                    out_size: int, size_ratio: float = 1.0,
+                    aspect_ratio: float = 1.0, pad_val: int = 128,
+                    mask: np.ndarray | None = None) -> CropResult:
+    """Object-centric crop → keep-ratio resize → center pad, with the
+    accumulated transform folded into the intrinsics (reference
+    Crop/Resize/Pad stack, geometry_transform.py:154-501): the
+    square-ified bbox expanded by ``size_ratio``, cropped with
+    out-of-frame pixels at ``pad_val``, resized bilinearly so its longer
+    side is ``out_size`` (cv2's resize), center-padded with ``pad_val``.
+    A mask is resized as 0/255 and thresholded above 127."""
+    h, w = image.shape[:2]
+    cx1, cy1, cx2, cy2 = expand_bbox(bbox, size_ratio, aspect_ratio)
+
+    t_crop = np.array([[1, 0, -cx1], [0, 1, -cy1], [0, 0, 1]], np.float32)
+
+    # crop with out-of-frame padding
+    ch, cw = cy2 - cy1, cx2 - cx1
+    patch = np.full((ch, cw, 3), pad_val, image.dtype)
+    sy1, sy2 = max(cy1, 0), min(cy2, h)
+    sx1, sx2 = max(cx1, 0), min(cx2, w)
+    if sy2 > sy1 and sx2 > sx1:
+        patch[sy1 - cy1:sy2 - cy1, sx1 - cx1:sx2 - cx1] = image[sy1:sy2, sx1:sx2]
+    mask_patch = None
+    if mask is not None:
+        mask_patch = np.zeros((ch, cw), mask.dtype)
+        if sy2 > sy1 and sx2 > sx1:
+            mask_patch[sy1 - cy1:sy2 - cy1, sx1 - cx1:sx2 - cx1] = mask[sy1:sy2, sx1:sx2]
+
+    # keep-ratio resize: scale so max side == out_size
+    scale = out_size / max(ch, cw)
+    rh, rw = int(round(ch * scale)), int(round(cw * scale))
+    patch = resize_linear(patch, (rh, rw))
+    if mask_patch is not None:
+        mask_patch = resize_linear(mask_patch.astype(np.uint8) * 255,
+                                   (rh, rw)) > 127
+    t_resize = np.array([[scale, 0, 0], [0, scale, 0], [0, 0, 1]], np.float32)
+
+    # center pad to (out_size, out_size)
+    top = int(out_size / 2 - rh / 2)
+    left = int(out_size / 2 - rw / 2)
+    out = np.full((out_size, out_size, 3), pad_val, patch.dtype)
+    out[top:top + rh, left:left + rw] = patch
+    if mask_patch is not None:
+        mpad = np.zeros((out_size, out_size), bool)
+        mpad[top:top + rh, left:left + rw] = mask_patch
+        mask_patch = mpad
+    t_pad = np.array([[1, 0, left], [0, 1, top], [0, 0, 1]], np.float32)
+
+    transform = t_pad @ t_resize @ t_crop
+    k_new = transform @ k  # adapt_intrinsic mode
+    return CropResult(patch=out, transform=transform, k_new=k_new,
+                      scale_factor=scale, mask_patch=mask_patch)
 
 
 def normalize_image(img: np.ndarray, mean=(0., 0., 0.),

@@ -8,11 +8,12 @@ BOP-format results (``--save-dir``, ``--format-only``).
       --ref-annots-root DATA/init_poses --image-list DATA/image_lists/test.txt \\
       --mesh-dir DATA/models [--device cpu] [--checkpoint DIR]
 
-With ``--num-classes 21`` (the default) the YCB-V symmetric classes and
-mesh diameters apply, whatever the meshes, as in the JAX CLI. The recipe
-flag ``--config`` and the scene pose-graph flag ``--pose-graph`` are not
-defined, so argparse refuses them: the recipes come with the
-training-data slice, the pose graph with the parallel slice.
+``--config <recipe>`` supplies the recipe's test split, initial poses and
+mesh dir where the flags do not. With ``--num-classes 21`` (the default)
+the YCB-V symmetric classes and mesh diameters apply, whatever the
+meshes, as in the JAX CLI. The scene pose-graph flag ``--pose-graph`` is
+not defined, so argparse refuses it: the pose graph comes with the
+parallel slice.
 """
 from __future__ import annotations
 
@@ -24,6 +25,9 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(prog="python -m scflow_torch.test",
                                 description="Evaluate an SCFlow refiner on "
                                             "a BOP test split")
+    p.add_argument("--config", default=None,
+                   help="named recipe from scflow_torch.configs; supplies the "
+                        "test dataset paths unless overridden")
     p.add_argument("--checkpoint", required=False, default=None,
                    help="a directory of the port's checkpoints (the newest "
                         "is restored)")
@@ -56,13 +60,30 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+def resolve_args(args):
+    """Fill the test dataset paths a ``--config`` recipe supplies where the
+    flags leave them unset (the JAX CLI's rule); refuse a run that still
+    lacks one."""
+    if args.config:
+        from .configs import get_recipe
+
+        spec = get_recipe(args.config).test_data
+        args.data_root = args.data_root or spec.data_roots[0]
+        args.ref_annots_root = args.ref_annots_root or spec.ref_annots_root
+        args.image_list = args.image_list or spec.image_lists[0]
+        if args.mesh_dir is None:
+            args.mesh_dir, args.mesh_ext = spec.mesh_dir, spec.mesh_ext
+    for field in ("data_root", "ref_annots_root", "image_list", "mesh_dir"):
+        if getattr(args, field) is None:
+            raise SystemExit(f"--{field.replace('_', '-')} is required "
+                             "(or pass --config <recipe>)")
+    return args
+
+
 def main(argv=None) -> tuple[dict, list]:
     """Run the CLI on ``argv`` (default ``sys.argv[1:]``); returns the
     metric dict and the per-image results (kept when results are written)."""
-    args = parse_args(argv)
-    for field in ("data_root", "ref_annots_root", "image_list", "mesh_dir"):
-        if getattr(args, field) is None:
-            raise SystemExit(f"--{field.replace('_', '-')} is required")
+    args = resolve_args(parse_args(argv))
 
     from .data.bop import RefineDataset
     from .data.loader import TestBatchBuilder

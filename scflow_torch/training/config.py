@@ -7,8 +7,9 @@ transform, in float32 or bfloat16. Fields with other values come with the
 slices that run them.
 
 One deliberate difference: ``DataConfig`` has no ``use_native`` /
-``native_crop``. The port has one crop path, with the semantics of the JAX
-package's C++ crop (``data.pipeline.crop_resize_pad_batch``)."""
+``native_crop``. The port's eval crop has the semantics of the JAX
+package's C++ crop (``data.pipeline.crop_resize_pad_batch``), its train
+crop those of its cv2 crop (``data.pipeline.crop_resize_pad``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -83,10 +84,30 @@ class RenderConfig:
 class DataConfig:
     batch_size: int = 16
     image_scale: int = 256
+    # train crops: the reference-pose bbox expanded by U(crop_size_range)
+    crop_size_range: tuple = (1.0, 1.25)
     # eval crops: the reference-pose bbox expanded by this factor
     test_crop_size: float = 1.1
     normalize_mean: tuple = (0.0, 0.0, 0.0)
     normalize_std: tuple = (255.0, 255.0, 255.0)
+    min_visib_fract: float = 0.2
+    # train-time photometric augmentation of the real-image crop: HSV ->
+    # noise -> smooth (reference configs/refine_models/scflow_ycbv_pbr.py:69-71)
+    color_aug: bool = True
+    # multi-object scene batching: every visible object of `scene_images`
+    # images in `slots_per_image` padded slots masked by sample_valid; the
+    # batch is scene_images * slots_per_image
+    scene_mode: bool = False
+    scene_images: int = 4
+    slots_per_image: int = 4
+    # background replacement and occlusion of the train crop (reference
+    # RandomBackground / RandomOcclusion / RandomOcclusionV2,
+    # datasets/pipelines/color_transform.py:176-403); occlusion_v2 pastes
+    # other objects' crops from a reservoir of recent samples
+    background_dir: str | None = None
+    background_p: float = 0.3
+    occlusion_p: float = 0.0
+    occlusion_v2_p: float = 0.0
 
 
 @dataclasses.dataclass

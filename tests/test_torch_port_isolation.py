@@ -99,6 +99,12 @@ def test_entry_points_refuse_missing_gpu(monkeypatch, tmp_path):
                  lambda: test_main(["--data-root", "d", "--ref-annots-root",
                                     "r", "--image-list", "l", "--mesh-dir",
                                     str(tmp_path)]),
+                 lambda: test_main(["--config", "scflow_ycbv_real",
+                                    "--mesh-dir", str(tmp_path)]),
+                 lambda: main(["--data-root", "d", "--image-list", "l",
+                               "--mesh-dir", str(tmp_path)]),
+                 lambda: main(["--config", "scflow_ycbv_real", "--mesh-dir",
+                               str(tmp_path)]),
                  lambda: make_bop(["--out", str(tmp_path / "bop")])):
         with pytest.raises(RuntimeError, match="no CUDA GPU"):
             call()

@@ -339,7 +339,8 @@ def test_cli_trains_logs_and_checkpoints(tmp_path):
     """``scflow_torch.train.main`` on the CPU: 2 steps at 64² with panels
     and the synthetic on-device eval write the JSONL log, a panel, TB event
     files and the final checkpoint; ``--resume`` continues from it; the
-    data flags of the JAX CLI are refused."""
+    data flags of the JAX CLI are parsed (they are run in
+    ``test_torch_port_traindata.py``), a flag it lacks is refused."""
     from scflow_torch.train import main
     from scflow_torch.training.checkpoint import list_checkpoint_steps
 
@@ -360,8 +361,15 @@ def test_cli_trains_logs_and_checkpoints(tmp_path):
     assert list_checkpoint_steps(os.path.join(work, "checkpoints")) == [2]
     assert main(base + ["--steps", "3", "--resume"]).step == 3
     assert list_checkpoint_steps(os.path.join(work, "checkpoints")) == [2, 3]
-    for flag in (["--config", "scflow_ycbv_pbr"], ["--data-root", "x"],
-                 ["--scene"], ["--mesh-dir", "x"], ["--image-list", "x"],
-                 ["--mesh-ext", "ply"], ["--scene-images", "2"]):
-        with pytest.raises(SystemExit):
-            main(base + flag)
+    from scflow_torch.train import parse_args
+
+    for flag, field, value in (
+            (["--config", "scflow_ycbv_pbr"], "config", "scflow_ycbv_pbr"),
+            (["--data-root", "x"], "data_root", "x"),
+            (["--scene"], "scene", True), (["--mesh-dir", "x"], "mesh_dir", "x"),
+            (["--image-list", "x"], "image_list", "x"),
+            (["--mesh-ext", "ply"], "mesh_ext", "ply"),
+            (["--scene-images", "2"], "scene_images", 2)):
+        assert getattr(parse_args(base + flag), field) == value
+    with pytest.raises(SystemExit):
+        main(base + ["--pose-graph"])
