@@ -96,6 +96,22 @@ Phases (each prints one JSON line; any failed check raises):
           step's, and the loader's samples/s alone and through
           ``prefetch`` with ms per sample to decode, crop and augment, on
           the tool's frames and on Paeth-filtered copies.
+  train_pbr  JPEG without cv2, and the PBR recipes: the host library's
+          build time; every committed JPEG fixture
+          (``tests/torch_fixtures/jpeg``) decoded color and gray against
+          the sha256 of cv2's arrays in its manifest; host ms per 640×480
+          frame on 1 and 3 threads, beside the host CPU's name; the tool
+          writes an 8-image ``train_pbr`` split on the card (the fixture
+          frames' seed and arguments) whose frames become the JPEG
+          fixtures, and an 8-image PNG ``train_real`` split; with the 3
+          JPEG backgrounds as ``data/coco``,
+          ``scflow_torch.train.main --config scflow_ycbv_mixpbr`` (batch
+          16, 256², 8 iterations, f32, the recipe's backgrounds and
+          occlusion at p 0.3) runs 4 steps: launches per fit step (K1 1,
+          K2 30 and 30), finite losses, neither cv2 nor PIL imported, a
+          disk batch's loss and gradient against the CPU; fit-step time
+          beside the bare step's, the loader's samples/s alone and through
+          ``prefetch`` with decode ms per sample.
 Then the ``kernels`` line (K1, the K2 forward and backward in f32 and in
 bf16, each with its launches on every path), the card line from nvidia-smi
 and, last, ``{"ok": true, "device": {...}}``. Exits non-zero without a
@@ -157,6 +173,15 @@ TRAIN_BOP_IMAGES, TRAIN_BOP_TEST_IMAGES, TRAIN_BOP_BACKGROUNDS = 48, 8, 4
 TRAIN_BOP_STEPS, TRAIN_BOP_EVERY, TRAIN_BOP_SCENE_STEPS = 6, 3, 2
 TRAIN_BOP_OCCLUSION_P = 0.3
 LOADER_BATCHES = {"filter0": (2, 6), "paeth": (1, 2)}   # (alone, prefetch)
+# train_pbr: the committed JPEG fixtures (cv2's digests in their
+# manifest); the scflow_ycbv_mixpbr recipe over a JPEG train_pbr split (the
+# fixture frames), a PNG train_real split and the JPEG backgrounds as
+# data/coco; fit steps; decode threads timed; loader batches (alone,
+# prefetch: a multiple of its 3 workers, or the last round runs part-full)
+JPEG_FIXTURES = "tests/torch_fixtures/jpeg"
+TRAIN_PBR_IMAGES, TRAIN_PBR_REAL_IMAGES, TRAIN_PBR_STEPS = 8, 8, 4
+DECODE_THREADS, DECODE_REPS = (1, 3), 6
+PBR_LOADER_BATCHES = (2, 6)
 # a step after resume, live vs restored state: the loss is bit-equal (a
 # deterministic forward); cuDNN's backward may sum in another order, so
 # the parameters are held to Adam's step bound (2.5 lr per element) and
@@ -1898,6 +1923,247 @@ def phase_train_bop(train_ms: float, smi: str) -> tuple:
     return out["launches"]
 
 
+def host_cpu() -> str:
+    """The host CPU: its model name (``/proc/cpuinfo`` on x86, ``lscpu``
+    elsewhere), architecture and core count."""
+    import os
+    import platform
+    import shutil
+
+    name = "unknown"
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            if line.startswith("model name"):
+                name = line.split(":", 1)[1].strip()
+                break
+    if name == "unknown" and shutil.which("lscpu"):
+        out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                             timeout=60).stdout
+        for line in out.splitlines():
+            if line.startswith(("Model name", "Vendor ID")):
+                name = line.split(":", 1)[1].strip()
+                if line.startswith("Model name"):
+                    break
+    return f"{name}, {platform.machine()}, {os.cpu_count()} cores"
+
+
+def check_jpeg_fixtures(root: str) -> dict:
+    """Decode every committed fixture with the port's decoder, color and
+    gray, against the sha256 of cv2's arrays in the manifest (bit-equality
+    with cv2 on a machine without it); time the 640×480 frames decoded by
+    1 and by 3 threads (host ms per frame: wall time over frames)."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    from scflow_torch.data.jpeg import decode_jpeg
+
+    with open(f"{root}/manifest.json") as f:
+        files = json.load(f)["files"]
+    data = {}
+    for m in files:
+        with open(f"{root}/{m['file']}", "rb") as f:
+            data[m["file"]] = f.read()
+    for m in files:
+        for gray, key in ((False, "rgb_sha256"), (True, "gray_sha256")):
+            img = decode_jpeg(data[m["file"]], m["file"], gray)
+            check(list(img.shape[:2]) == m["shape"]
+                  and hashlib.sha256(img.tobytes()).hexdigest() == m[key],
+                  f"train_pbr: {m['file']} gray={gray} differs from cv2")
+    timing = {}
+    for kind in ("frame", "textured"):
+        blobs = [data[m["file"]] for m in files if m["kind"] == kind]
+        jobs = blobs * DECODE_REPS
+        timing[kind] = {}
+        for threads in DECODE_THREADS:
+            with ThreadPoolExecutor(threads) as pool:
+                list(pool.map(decode_jpeg, blobs))          # warm
+                t0 = time.perf_counter()
+                list(pool.map(decode_jpeg, jobs))
+                timing[kind][f"{threads}_threads"] = (
+                    1e3 * (time.perf_counter() - t0) / len(jobs))
+        timing[kind]["frames"] = len(blobs)
+        timing[kind]["bytes_per_frame"] = sum(map(len, blobs)) / len(blobs)
+    return dict(files=len(files), digests_equal=2 * len(files),
+                decode_ms_per_frame=timing)
+
+
+def pbr_layout(root: str, fixtures: str) -> dict:
+    """The port's tool writes a ``train_pbr`` split on the card with the
+    fixture frames' seed and arguments, whose PNG frames are swapped for
+    the JPEG fixtures (image list rewritten to ``.jpg``), and a PNG
+    ``train_real`` split; both, the meshes and the 3 JPEG backgrounds
+    (``data/coco``) are linked where ``scflow_ycbv_mixpbr`` reads them."""
+    import os
+
+    import numpy as np
+
+    from scflow_torch.data.imageio import imread
+    from scflow_torch.tools.make_synthetic_bop import main as make_tree
+
+    tree_args = ["--num-classes", str(NUM_CLASS), "--height",
+                 str(BOP_FRAME[0]), "--width", str(BOP_FRAME[1]),
+                 "--min-objects", str(BOP_OBJECTS[0]), "--max-objects",
+                 str(BOP_OBJECTS[1]), "--device", "cuda"]
+    pbr = make_tree(["--out", f"{root}/pbr", "--split", "train_pbr",
+                     "--num-images", str(TRAIN_PBR_IMAGES), "--seed", "0",
+                     *tree_args])
+    real = make_tree(["--out", f"{root}/real", "--split", "train_real",
+                      "--num-images", str(TRAIN_PBR_REAL_IMAGES), "--seed",
+                      "1", *tree_args])
+    rgb = f"{root}/pbr/train_pbr/000001/rgb"
+    pngs = sorted(os.listdir(rgb))
+    check(pngs == [f"{i:06d}.png" for i in range(TRAIN_PBR_IMAGES)],
+          f"train_pbr: the tool's frames {pngs}")
+    diffs = []
+    for i, name in enumerate(pngs):
+        jpg = f"{fixtures}/frame_{i:06d}.jpg"
+        diffs.append(float(np.abs(imread(jpg).astype(np.int16)
+                                  - imread(f"{rgb}/{name}")).mean()))
+        os.remove(f"{rgb}/{name}")
+        os.symlink(os.path.abspath(jpg), f"{rgb}/{i:06d}.jpg")
+    # the fixtures re-encode the frames the tool renders for this seed
+    check(max(diffs) < 4.0, f"train_pbr: JPEG frames vs the card's {diffs}")
+    lst = f"{root}/pbr/image_lists/train_pbr.txt"
+    with open(lst) as f:
+        text = f.read()
+    with open(lst, "w") as f:
+        f.write(text.replace(".png", ".jpg"))
+    data = f"{root}/layout/data"
+    os.makedirs(f"{data}/ycbv/image_lists")
+    os.makedirs(f"{data}/coco")
+    for tree, split in ((f"{root}/pbr", "train_pbr"),
+                        (f"{root}/real", "train_real")):
+        os.symlink(f"{tree}/{split}", f"{data}/ycbv/{split}")
+        os.symlink(f"{tree}/image_lists/{split}.txt",
+                   f"{data}/ycbv/image_lists/{split}.txt")
+    os.symlink(f"{root}/pbr/models", f"{data}/ycbv/models_1024")
+    for name in sorted(os.listdir(fixtures)):
+        if name.startswith("bg_"):
+            os.symlink(os.path.abspath(f"{fixtures}/{name}"),
+                       f"{data}/coco/{name}")
+    return dict(pbr=pbr, real=real, frame_vs_card_mean_abs_diff=diffs)
+
+
+def phase_train_pbr(train_ms: float, smi: str) -> tuple:
+    """JPEG without cv2, and the PBR recipe from JPEG trees: the host
+    library's build, every fixture against cv2's digests, decode times;
+    ``scflow_torch.train.main --config scflow_ycbv_mixpbr`` (batch 16,
+    256², 8 iterations, f32; backgrounds and object-paste occlusion at the
+    recipe's p 0.3) for 4 steps over a JPEG train_pbr and a PNG
+    train_real split written on the card. Returns the run's launches of
+    K1, the K2 forward and backward."""
+    import os
+    import tempfile
+    from unittest import mock
+
+    import torch
+
+    import scflow_torch.train as cli
+    import scflow_torch.training.trainer as trainer_mod
+    from scflow_torch.data import _build as host_build
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    host_build.library()
+    build = dict(seconds=time.perf_counter() - t0,
+                 cached=host_build.build_info["cached"],
+                 library=host_build.build_info["path"])
+    fixtures = os.path.abspath(JPEG_FIXTURES)
+    t0 = time.perf_counter()
+    decode = check_jpeg_fixtures(fixtures)
+    seconds = dict(host_build=build["seconds"],
+                   fixtures=time.perf_counter() - t0)
+
+    timed, builders, losses = Timed(), [], []
+
+    def capture_prefetch(builder):
+        builders.append(builder)
+        return prefetch(builder)
+
+    def timed_train_step(*args, **kw):
+        step = make_train_step(*args, **kw)
+
+        def kept(batch):
+            out = step(batch)
+            losses.append(out["loss"])
+            return out
+        return timed("train", kept)
+
+    prefetch, make_train_step = cli.prefetch, trainer_mod.make_train_step
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="scflow_train_pbr_") as root:
+        t0 = time.perf_counter()
+        trees = pbr_layout(root, fixtures)
+        write_s = time.perf_counter() - t0
+        os.chdir(f"{root}/layout")          # the recipe's relative paths
+        try:
+            with mock.patch.object(cli, "prefetch", capture_prefetch), \
+                    mock.patch.object(trainer_mod, "make_train_step",
+                                      timed_train_step):
+                reset_counts()
+                t0 = time.perf_counter()
+                trainer = cli.main([
+                    "--config", "scflow_ycbv_mixpbr", "--device", "cuda",
+                    "--steps", str(TRAIN_PBR_STEPS), "--work-dir",
+                    f"{root}/run"])
+                torch.cuda.synchronize()
+                fit_s = time.perf_counter() - t0
+                launches = counts()
+            builder = builders[0]
+            t0 = time.perf_counter()
+            batch = {k: torch.from_numpy(v).cuda()
+                     for k, v in builder().items()}
+            parity = train_parity(trainer.cfg, trainer.renderer,
+                                  trainer.points_bank, batch)
+            seconds["cpu_parity"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            loader = measure_loader(builder, *PBR_LOADER_BATCHES)
+            seconds["loader"] = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+    steps = timed.records["train"]
+    recipe_losses = torch.stack(losses).cpu()
+    data = trainer.cfg.data
+    check(trainer.step == TRAIN_PBR_STEPS, f"train_pbr: {trainer.step} steps")
+    check(data.background_dir == "data/coco" and data.background_p == 0.3
+          and len(builder._bg_paths) == 3, "train_pbr: the recipe's "
+          f"backgrounds {data.background_dir} {builder._bg_paths}")
+    check(len(builder.dataset) == TRAIN_PBR_IMAGES + TRAIN_PBR_REAL_IMAGES,
+          f"train_pbr: {len(builder.dataset)} images in the dataset")
+    check(bool(torch.isfinite(recipe_losses).all()),
+          f"train_pbr: losses {recipe_losses.tolist()}")
+    for _, _, n in steps:
+        check(n == (1, 30, 30), f"train_pbr: launches per fit step {n}")
+    check("cv2" not in sys.modules and "PIL" not in sys.modules,
+          "train_pbr: cv2 or PIL was imported")
+    starts = [t0 for t0, _, _ in steps]
+    fit_step_ms = [1e3 * (b - a) for a, b in zip(starts, starts[1:])]
+    step_in_fit_ms = [1e3 * (t1 - t0) for t0, t1, _ in steps]
+    emit(phase="train_pbr", card=smi, host_cpu=host_cpu(),
+         recipe="scflow_ycbv_mixpbr", batch=TRAIN_BATCH, image=list(SIZE),
+         classes=NUM_CLASS, iters=ITERS, dtype="float32",
+         host_library_build=build, fixtures=decode,
+         frame=list(BOP_FRAME), pbr_images=trees["pbr"]["images"],
+         pbr_objects=trees["pbr"]["objects"],
+         real_images=trees["real"]["images"],
+         real_objects=trees["real"]["objects"],
+         frame_vs_card_mean_abs_diff=trees["frame_vs_card_mean_abs_diff"],
+         tree_write_s=write_s, backgrounds=len(builder._bg_paths),
+         background_p=data.background_p, occlusion_v2_p=data.occlusion_v2_p,
+         steps=TRAIN_PBR_STEPS, fit_seconds=fit_s,
+         fit_step_ms_median=statistics.median(fit_step_ms),
+         fit_step_ms=fit_step_ms, train_step_in_fit_ms=step_in_fit_ms,
+         train_phase_step_ms_median=train_ms,
+         losses=recipe_losses.tolist(), launches=list(launches),
+         launches_per_fit_step=dict(zip(
+             ("rasterize_tiles", "instance_norm_fwd", "instance_norm_bwd"),
+             steps[0][2])),
+         cpu_parity=parity, loader=loader, cv2_or_pil_imported=False,
+         seconds=dict(seconds, tree=write_s, fit=fit_s),
+         phase_seconds=time.perf_counter() - t_phase)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1997,6 +2263,7 @@ def main() -> int:
     raft_train = phase_raft_train(bank)
     eval_bop = phase_eval_bop()
     train_bop = phase_train_bop(train_ms, smi)
+    train_pbr = phase_train_pbr(train_ms, smi)
     emit(phase="done", seconds_total=time.perf_counter() - t_start)
 
     # ``launches``: the row's own path (f32 or bf16); beside it every
@@ -2005,7 +2272,7 @@ def main() -> int:
     paths = {"main": main_counts, "bf16": (*bf16, 0), "raft": (*raft, 0),
              "train": train, "trainer": trainer, "train_bf16": train_bf16,
              "raft_train": raft_train, "eval_bop": (*eval_bop, 0),
-             "train_bop": train_bop}
+             "train_bop": train_bop, "train_pbr": train_pbr}
 
     def by_path(i, names):
         return {p: paths[p][i] for p in names}
@@ -2013,11 +2280,11 @@ def main() -> int:
     k1_row.update(launches=main_run["k1"], launches_by_path=by_path(0, paths))
     fwd_rows[0].update(launches=main_run["k2"], launches_by_path=by_path(
         1, ("main", "raft", "train", "trainer", "raft_train", "eval_bop",
-            "train_bop")))
+            "train_bop", "train_pbr")))
     fwd_rows[1].update(launches=bf16[1], launches_by_path=by_path(
         1, ("bf16", "train_bf16")))
     bwd_rows[0].update(launches=train[2], launches_by_path=by_path(
-        2, ("train", "trainer", "raft_train", "train_bop")))
+        2, ("train", "trainer", "raft_train", "train_bop", "train_pbr")))
     bwd_rows[1].update(launches=train_bf16[2],
                        launches_by_path=by_path(2, ("train_bf16",)))
     rows = [k1_row, *fwd_rows, *bwd_rows]

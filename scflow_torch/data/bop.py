@@ -11,8 +11,9 @@
 The BOP layout per sequence directory ``XXXXXX/``: ``rgb/``,
 ``mask_visib/``, ``scene_gt.json``, ``scene_gt_info.json``,
 ``scene_camera.json``; image lists are text files of
-``sequence/rgb/XXXXXX.png`` paths. Images are read by the port's PNG
-decoder (``data.imageio``), not cv2 or PIL.
+``sequence/rgb/XXXXXX.png`` (or ``.jpg``, BOP ``train_pbr``) paths.
+Images are read by the port's PNG and JPEG decoders (``data.imageio``),
+not cv2 or PIL.
 
 One deliberate difference: the port's ``ConcatDataset`` has ``get(index,
 rng)``, which the train batch builders call. The JAX package's has none,

@@ -1,44 +1,59 @@
-"""Image reading without cv2 or PIL: a stdlib PNG decoder.
+"""Image reading without cv2 or PIL: a stdlib PNG decoder and the port's
+own JPEG decoder.
 
 The JAX package reads images through its C++ library, cv2 or PIL
 (``scflow_tpu/data/bop.py:27-50``); the port's readers use :func:`imread`,
-which decodes PNG with ``zlib`` and ``struct`` alone (the inverse of
-``utils.tb_writer.encode_png``) and returns what ``cv2.imread`` returns,
-RGB-ordered: 8-bit gray, gray+alpha, RGB and RGBA images, any filter
-type, any number of IDAT chunks. Alpha is dropped and gray is repeated
-into three channels for a color read, as cv2's ``IMREAD_COLOR`` does.
+which returns what ``cv2.imread`` returns, RGB-ordered. It dispatches on
+the file's signature, not its extension:
 
-Interlaced, palette and 16-bit PNGs, and JPEG files, raise a
-``ValueError`` that names the file: YCB-V's ``test`` and ``train_real``
-splits are 8-bit PNG; JPEG (BOP ``train_pbr``, COCO backgrounds) has no
-decoder in the port yet. :func:`check_readable` raises the same error
-from a file's header alone.
+- JPEG (``FF D8``) goes to :mod:`.jpeg` (a C++ decoder built at first use,
+  bit-equal to cv2's libjpeg-turbo). A gray JPEG read in color repeats Y
+  into three channels, a color JPEG read as gray is its Y plane.
+- PNG is decoded with ``zlib`` and ``struct`` alone (the inverse of
+  ``utils.tb_writer.encode_png``): 8-bit gray, gray+alpha, RGB and RGBA,
+  any filter type, any number of IDAT chunks. A color read drops alpha
+  and repeats gray into three channels, as cv2's ``IMREAD_COLOR`` does. A
+  gray read of a color PNG drops alpha and applies libpng's rgb-to-gray,
+  which cv2 uses: ``(9797 R + 19234 G + 3737 B) >> 15``, truncated.
+
+Interlaced, palette and 16-bit PNGs, and the JPEG forms :mod:`.jpeg`
+refuses, raise a ``ValueError`` that names the file. :func:`check_readable`
+raises the same error from a file's header alone.
 """
 from __future__ import annotations
 
+import os
 import struct
 import zlib
 
 import numpy as np
 
+from .jpeg import HeaderIncomplete, decode_jpeg, jpeg_info
+
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+JPEG_SIGNATURE = b"\xff\xd8"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}      # color type → samples per pixel
+_JPEG_HEAD = 1 << 16      # bytes check_readable reads before the whole file
+# libpng's png_set_rgb_to_gray(…, 0.299, 0.587) in 1/32768 (cv2's gray read)
+_PNG_GRAY = (9797, 19234, 3737)
 
 
 def imread(path: str, gray: bool = False) -> np.ndarray:
-    """Read an 8-bit PNG: (H, W, 3) RGB uint8, or with ``gray`` the (H, W)
-    gray plane of a gray(+alpha) image. A missing file raises
-    ``FileNotFoundError``, anything this decoder does not read (JPEG,
-    interlaced, palette, 16-bit, a color image read as gray)
-    ``ValueError``."""
+    """Read a JPEG or 8-bit PNG: (H, W, 3) RGB uint8, or with ``gray`` the
+    (H, W) gray plane. A missing file raises ``FileNotFoundError``,
+    anything this reader does not decode ``ValueError``."""
     with open(path, "rb") as f:
         data = f.read()
+    if data[:2] == JPEG_SIGNATURE:
+        return decode_jpeg(data, path, gray)
     pixels, color = decode_png(data, path)
     if gray:
-        if color not in (0, 4):
-            raise ValueError(f"{path}: a color PNG read as gray "
-                             "(only gray PNGs are read as gray)")
-        return np.ascontiguousarray(pixels[..., 0])
+        if color in (0, 4):
+            return np.ascontiguousarray(pixels[..., 0])
+        acc = np.zeros(pixels.shape[:2], np.uint32)
+        for c, weight in enumerate(_PNG_GRAY):
+            acc += np.uint32(weight) * pixels[..., c]
+        return (acc >> 15).astype(np.uint8)
     if color in (0, 4):
         return np.repeat(pixels[..., :1], 3, axis=-1)
     return np.ascontiguousarray(pixels[..., :3])
@@ -46,10 +61,15 @@ def imread(path: str, gray: bool = False) -> np.ndarray:
 
 def check_readable(path: str) -> None:
     """Raise what :func:`imread` would raise for a file it cannot decode
-    (missing, JPEG, not PNG, interlaced, palette, 16-bit), reading only
-    its signature and header."""
+    (missing, neither PNG nor JPEG, interlaced, palette, 16-bit PNG, a
+    JPEG form the decoder refuses), reading only the file's header; and,
+    for a JPEG that does not end in EOI (truncated, or data after EOI),
+    decoding the file."""
     with open(path, "rb") as f:
-        head = f.read(33)               # signature + the IHDR chunk
+        head = f.read(_JPEG_HEAD)
+        if head[:2] == JPEG_SIGNATURE:
+            _check_jpeg(f, head, path)
+            return
     _check_signature(head, path)
     length, kind = struct.unpack(">I4s", head[8:16])
     if kind != b"IHDR" or length != 13:
@@ -57,12 +77,23 @@ def check_readable(path: str) -> None:
     _check_header(struct.unpack(">IIBBBBB", head[16:29]), path)
 
 
+def _check_jpeg(f, head: bytes, path: str) -> None:
+    try:
+        jpeg_info(head, path)
+    except HeaderIncomplete:
+        if len(head) < _JPEG_HEAD:
+            raise ValueError(f"{path}: JPEG not decoded: truncated file"
+                             ) from None
+        jpeg_info(head + f.read(), path)
+    f.seek(-2, os.SEEK_END)
+    if f.read(2) != b"\xff\xd9":
+        f.seek(0)
+        decode_jpeg(f.read(), path)
+
+
 def _check_signature(data: bytes, path: str) -> None:
-    if data[:2] == b"\xff\xd8":
-        raise ValueError(f"{path}: JPEG is not decoded: the port has no "
-                         "JPEG decoder (only PNG without cv2 or PIL)")
     if data[:8] != PNG_SIGNATURE:
-        raise ValueError(f"{path}: not a PNG file")
+        raise ValueError(f"{path}: neither a PNG nor a JPEG file")
 
 
 def _check_header(header: tuple, path: str) -> None:

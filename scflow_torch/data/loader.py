@@ -11,10 +11,10 @@ images into one batch.
 Deliberate differences from the JAX package, each so that no failure
 passes quietly:
 
-- A background file the port cannot decode (JPEG: it has no JPEG
-  decoder) raises ``imageio``'s ``ValueError``, naming the file, when the
-  train builder is built; the JAX package skips a background it cannot
-  read each time it draws it.
+- A background file the port cannot decode (a form ``imageio``
+  refuses, such as a CMYK JPEG) raises its ``ValueError``, naming the
+  file, when the train builder is built; the JAX package skips a
+  background it cannot read each time it draws it.
 - An exception in a :func:`prefetch` worker is raised by the consumer;
   the JAX package's worker thread dies and the consumer waits forever.
 

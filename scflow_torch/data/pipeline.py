@@ -5,7 +5,10 @@ and of the JAX package's C++ crop).
 
 Every 2D step is one 3×3 affine ``transform``; the camera intrinsics
 absorb it (K' = T·K, the shipped configs' ``adapt_intrinsic`` mode), so
-poses never change and no PnP runs on these paths.
+poses never change and no PnP runs on these paths. The other two modes
+(``keep_intrinsic``, ``target_intrinsic``) re-solve the pose by a host
+PnP instead (:func:`remap_pose`, :func:`apply_geometry_transform_mode`;
+``scflow_tpu/data/pipeline.py:198-371``).
 
 Two crops, one per builder, as the JAX package runs them:
 
@@ -23,7 +26,9 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
+from ..geometry.pnp import epnp
 from ..training.config import JitterConfig
 from .cvops import resize_linear
 
@@ -254,3 +259,165 @@ def crop_resize_pad_batch(images: list[np.ndarray], boxes: np.ndarray,
         _crop_one(frames[id(img)], boxes[i], out_size, mean, std, out[i],
                   transforms[i])
     return out, transforms
+
+
+# ---------------------------------------------------------------------------
+# Pose remapping under a 2D transform (reference RemapPose,
+# datasets/pipelines/geometry_transform.py:22-150, and its test-time inverse
+# models/utils/pose.py:264-309). Three geometry_transform modes:
+# - 'adapt_intrinsic': fold the crop transform into K (K' = T @ K); the
+#   pose is untouched.
+# - 'keep_intrinsic': keep K; re-solve (R, t) so projection under K matches
+#   the transformed 2D keypoints (EPnP + Levenberg-Marquardt).
+# - 'target_intrinsic': re-solve (R, t) against a caller-supplied target K.
+# ---------------------------------------------------------------------------
+
+def _refine_pose_gn_np(r: np.ndarray, t: np.ndarray, pts: np.ndarray,
+                       pix: np.ndarray, k: np.ndarray, iters: int = 20):
+    """Float64 Levenberg-Marquardt on the reprojection error: a
+    left-multiplied axis-angle delta on R, an additive one on t, JAX's step
+    acceptance (up to 8 tries, λ ×0.3 on success, ×10 on failure) and its
+    1e-12 stop."""
+    fu, fv = k[0, 0], k[1, 1]
+
+    def residual(r, t):
+        cam = pts @ r.T + t
+        zi = 1.0 / np.maximum(cam[:, 2], 1e-9)
+        return np.concatenate([
+            fu * cam[:, 0] * zi + k[0, 2] - pix[:, 0],
+            fv * cam[:, 1] * zi + k[1, 2] - pix[:, 1]])
+
+    lam = 1e-6
+    cost = float(np.sum(residual(r, t) ** 2))
+    for _ in range(iters):
+        rp = pts @ r.T
+        x, y, z = (rp + t).T
+        zi = 1.0 / np.maximum(z, 1e-9)
+        res = residual(r, t)
+        du = np.stack([fu * zi, np.zeros_like(zi), -fu * x * zi * zi], -1)
+        dv = np.stack([np.zeros_like(zi), fv * zi, -fv * y * zi * zi], -1)
+        # d(R p)/dw = -[R p]x for R <- exp([w]x) R (t is added apart)
+        px = np.zeros((len(pts), 3, 3))
+        px[:, 0, 1], px[:, 0, 2] = -rp[:, 2], rp[:, 1]
+        px[:, 1, 0], px[:, 1, 2] = rp[:, 2], -rp[:, 0]
+        px[:, 2, 0], px[:, 2, 1] = -rp[:, 1], rp[:, 0]
+        j_u = np.concatenate([-np.einsum("ni,nij->nj", du, px), du], -1)
+        j_v = np.concatenate([-np.einsum("ni,nij->nj", dv, px), dv], -1)
+        jac = np.concatenate([j_u, j_v], axis=0)
+        jtj = jac.T @ jac
+        jtr = jac.T @ res
+        for _try in range(8):
+            delta = -np.linalg.solve(jtj + lam * np.diag(np.diag(jtj))
+                                     + 1e-12 * np.eye(6), jtr)
+            w = delta[:3]
+            angle = np.linalg.norm(w)
+            if angle > 1e-14:
+                ax = w / angle
+                kx = np.array([[0, -ax[2], ax[1]], [ax[2], 0, -ax[0]],
+                               [-ax[1], ax[0], 0]])
+                dr = (np.eye(3) + np.sin(angle) * kx
+                      + (1 - np.cos(angle)) * kx @ kx)
+            else:
+                dr = np.eye(3)
+            r_new, t_new = dr @ r, t + delta[3:]
+            cost_new = float(np.sum(residual(r_new, t_new) ** 2))
+            if cost_new <= cost:
+                r, t, cost = r_new, t_new, cost_new
+                lam = max(lam * 0.3, 1e-12)
+                break
+            lam *= 10.0
+        if np.abs(delta).max() < 1e-12:
+            break
+    return r, t
+
+
+def _solve_pnp_np(pts: np.ndarray, pix: np.ndarray, k: np.ndarray,
+                  init_r: np.ndarray | None = None,
+                  init_t: np.ndarray | None = None):
+    """Host float64 PnP: JAX's branch without cv2. The initial pose is the
+    port's EPnP in f32 on the CPU, its rotation projected onto SO(3) in
+    float64 (the LM's left-multiplied updates keep any non-orthogonality
+    of the start), then the float64 LM refines it."""
+    if init_r is None:
+        f32 = dict(dtype=torch.float32, device="cpu")
+        init_r, init_t = epnp(torch.as_tensor(pts, **f32),
+                              torch.as_tensor(pix, **f32),
+                              torch.as_tensor(k, **f32))
+        u, _, vt = np.linalg.svd(init_r.numpy().astype(np.float64))
+        init_r = u @ np.diag([1.0, 1.0, np.linalg.det(u @ vt)]) @ vt
+        init_t = init_t.numpy().astype(np.float64)
+    return _refine_pose_gn_np(init_r, init_t, pts, pix,
+                              np.asarray(k, np.float64))
+
+
+def _project(pts: np.ndarray, r: np.ndarray, t: np.ndarray,
+             k: np.ndarray) -> np.ndarray:
+    cam = pts @ np.asarray(r, np.float64).T + np.asarray(t, np.float64)
+    uv = cam[:, :2] / np.maximum(cam[:, 2:3], 1e-9)
+    return uv * np.array([k[0, 0], k[1, 1]]) + np.array([k[0, 2], k[1, 2]])
+
+
+def remap_pose(rotation: np.ndarray, translation: np.ndarray,
+               keypoints_3d: np.ndarray, k_src: np.ndarray,
+               transform: np.ndarray, k_dst: np.ndarray):
+    """Re-solve a pose after a 2D affine ``transform`` of the image:
+    project ``keypoints_3d`` under (``k_src``, pose), transform the pixels,
+    solve PnP under ``k_dst``. Returns (rotation, translation) in float32
+    and the re-solved pose's reprojection RMS error in pixels."""
+    pts = np.asarray(keypoints_3d, np.float64)
+    pix = _project(pts, rotation, translation, k_src)
+    ones = np.ones((len(pix), 1))
+    pix_t = (np.concatenate([pix, ones], axis=1) @ np.asarray(
+        transform, np.float64).T)[:, :2]
+
+    r_new, t_new = _solve_pnp_np(pts, pix_t, k_dst)
+    r_new = r_new.astype(np.float32)
+    t_new = t_new.astype(np.float32)
+    pix2 = _project(pts, r_new, t_new, k_dst)
+    rmsd = float(np.sqrt(np.mean(np.sum((pix2 - pix_t) ** 2, axis=1))))
+    return r_new, t_new, rmsd
+
+
+def remap_pose_to_origin_resolution(rotation: np.ndarray,
+                                    translation: np.ndarray,
+                                    keypoints_3d: np.ndarray,
+                                    k_crop: np.ndarray,
+                                    transform: np.ndarray,
+                                    k_origin: np.ndarray,
+                                    mode: str = "adapt_intrinsic"):
+    """Map a pose predicted on the crop back to the original image;
+    ``transform`` is the accumulated crop 3×3 and ``mode`` how the crop
+    was made. Returns (rotation, translation, rmsd)."""
+    if mode == "adapt_intrinsic":
+        # K was adapted; the pose already lives in the original camera.
+        return (np.asarray(rotation, np.float32),
+                np.asarray(translation, np.float32), 0.0)
+    if mode in ("keep_intrinsic", "target_intrinsic"):
+        inv = np.linalg.inv(np.asarray(transform, np.float64))
+        return remap_pose(rotation, translation, keypoints_3d, k_crop, inv,
+                          k_origin)
+    raise ValueError(f"unknown geometry transform mode {mode!r}")
+
+
+def apply_geometry_transform_mode(crop: CropResult, rotation: np.ndarray,
+                                  translation: np.ndarray,
+                                  keypoints_3d: np.ndarray,
+                                  k_src: np.ndarray, mode: str,
+                                  target_k: np.ndarray | None = None):
+    """(rotation, translation, k) for a crop's patch under one of the three
+    modes."""
+    if mode == "adapt_intrinsic":
+        return (np.asarray(rotation, np.float32),
+                np.asarray(translation, np.float32),
+                crop.k_new.astype(np.float32))
+    if mode == "keep_intrinsic":
+        r, t, _ = remap_pose(rotation, translation, keypoints_3d, k_src,
+                             crop.transform, k_src)
+        return r, t, np.asarray(k_src, np.float32)
+    if mode == "target_intrinsic":
+        if target_k is None:
+            raise ValueError("target_intrinsic needs target_k")
+        r, t, _ = remap_pose(rotation, translation, keypoints_3d, k_src,
+                             crop.transform, target_k)
+        return r, t, np.asarray(target_k, np.float32)
+    raise ValueError(f"unknown geometry transform mode {mode!r}")

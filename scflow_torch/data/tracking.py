@@ -7,7 +7,7 @@ The reference fork adds datasets for a single-object tracking layout
 and ``image_set/*_test.txt`` image lists with 5-digit file ids. This module
 generalizes that: a :class:`TrackDataset` reading any single-or-multi
 object track directory tree, reusing the BOP annot format. Images are
-read by the port's PNG decoder.
+read by the port's PNG and JPEG decoders (``data.imageio``).
 
 One deliberate difference: :meth:`TrackDataset.get` (the train builders'
 entry, equal to ``__getitem__``: the dataset draws nothing). The JAX

@@ -6,9 +6,9 @@ Covers the formats the reference consumes through pytorch3d/trimesh
 fork's LUMI ``.obj`` meshes): ascii + binary_little_endian PLY with optional
 per-vertex color/normal/UV, and OBJ with optional material Kd colors /
 texture maps. UV textures are baked to per-vertex colors so downstream
-shapes stay static. Textures are read with the port's PNG decoder
-(``data.imageio``), so a GPU host needs neither cv2 nor PIL; a JPEG
-texture raises its ``ValueError``.
+shapes stay static. Textures (PNG or JPEG) are read with the port's own
+decoders (``data.imageio``), so a GPU host needs neither cv2 nor PIL; a
+form they do not decode raises their ``ValueError``.
 """
 from __future__ import annotations
 

@@ -106,15 +106,19 @@ def test_png_decoder_reads_cv2_files(tmp_path):
 @pytest.mark.parametrize("case", ["jpeg", "interlaced", "palette", "16bit",
                                   "color_as_gray"])
 def test_unreadable_images_raise(tmp_path, case):
-    """JPEG, interlaced, palette and 16-bit PNGs, and a color PNG read as
-    gray, raise a ValueError that names the file."""
-    from scflow_torch.data.imageio import imread
+    """A CMYK JPEG and interlaced, palette and 16-bit PNGs raise a
+    ValueError that names the file, from ``imread`` and from
+    ``check_readable``. A color PNG read as gray is read since JPEG came
+    in, with cv2's libpng rule: equal to cv2's gray read."""
+    from PIL import Image
+
+    from scflow_torch.data.imageio import check_readable, imread
 
     img = np.random.default_rng(0).integers(0, 256, (8, 9, 3), np.uint8)
     path = str(tmp_path / f"{case}.png")
     if case == "jpeg":
         path = str(tmp_path / "img.jpg")
-        cv2.imwrite(path, img)
+        Image.fromarray(img).convert("CMYK").save(path, quality=90)
     else:
         data = {"interlaced": lambda: encode_png(img, 0, interlace=1),
                 "palette": lambda: encode_png(img[..., 0], 0, color=3),
@@ -122,8 +126,14 @@ def test_unreadable_images_raise(tmp_path, case):
                 "color_as_gray": lambda: encode_png(img, 0)}[case]()
         with open(path, "wb") as f:
             f.write(data)
-    with pytest.raises(ValueError, match=Path(path).name):
-        imread(path, gray=case == "color_as_gray")
+    if case == "color_as_gray":
+        check_readable(path)
+        np.testing.assert_array_equal(imread(path, gray=True),
+                                      cv2.imread(path, cv2.IMREAD_GRAYSCALE))
+        return
+    for read in (imread, check_readable):
+        with pytest.raises(ValueError, match=Path(path).name):
+            read(path)
 
 
 # -- meshes -----------------------------------------------------------------

@@ -381,20 +381,37 @@ def test_builder_on_concat_and_track_matches_jax(trees, meshes):
 
 
 def test_jpeg_background_is_refused(trees, meshes, tmp_path):
-    """A JPEG in ``background_dir`` (the port has no JPEG decoder) raises
+    """A background the port cannot decode (a CMYK JPEG) raises
     ``ValueError`` naming the file when the builder is built; the JAX
     package would skip it each time it is drawn."""
+    from PIL import Image
+
     from scflow_torch.data.loader import TrainBatchBuilder
 
     ok, bad = tmp_path / "a.png", tmp_path / "b.jpg"
     img = np.random.default_rng(0).integers(0, 256, (32, 48, 3), np.uint8)
     _write_png(ok, img)
-    cv2.imwrite(str(bad), img)
+    Image.fromarray(img).convert("CMYK").save(bad, quality=90)
     cfg, _ = _configs(background_dir=str(tmp_path))
-    with pytest.raises(ValueError, match="b.jpg.*JPEG"):
+    with pytest.raises(ValueError, match="b.jpg.*CMYK"):
         TrainBatchBuilder(_supervise(trees, 1), cfg, *meshes)
     bad.unlink()
     TrainBatchBuilder(_supervise(trees, 1), cfg, *meshes)
+
+
+def test_jpeg_background_is_read(trees, meshes, tmp_path):
+    """A baseline JPEG in ``background_dir`` is accepted when the builder
+    is built and drawn as cv2 decodes it."""
+    from scflow_torch.data.loader import TrainBatchBuilder
+
+    img = np.random.default_rng(1).integers(0, 256, (32, 48, 3), np.uint8)
+    cv2.imwrite(str(tmp_path / "b.jpg"), img[..., ::-1],
+                [cv2.IMWRITE_JPEG_QUALITY, 90])
+    cfg, _ = _configs(background_dir=str(tmp_path))
+    b = TrainBatchBuilder(_supervise(trees, 1), cfg, *meshes)
+    np.testing.assert_array_equal(
+        b._load_background(),
+        cv2.imread(str(tmp_path / "b.jpg"), cv2.IMREAD_COLOR)[..., ::-1])
 
 
 def test_prefetch_raises_a_worker_error_and_stops():
