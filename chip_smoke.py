@@ -63,9 +63,11 @@ Phases (each prints one JSON line; any failed check raises):
   raft_train  the RAFT train step (raft_loss) at batch 16: 2 warm-up and 3
           timed steps, launches per step, finite metrics, moved parameters.
   sync    one f32 eval step of the main path, its batch already on the
-          card, under ``torch.cuda.set_sync_debug_mode``: "warn" lists any
+          card, then the eval loop's pose-graph pass over its outputs
+          (images of 4 slots) and one ``make_masked_metric_step``, under
+          ``torch.cuda.set_sync_debug_mode``: "warn" lists any
           synchronising call by file and line, then "error" must raise
-          nothing (the step copies nothing from the host).
+          nothing (they copy nothing from the host).
   eval_bop  the BOP eval CLI: ``scflow_torch.tools.make_synthetic_bop``
           writes 48 images at 640×480 with 3–6 of 21 classes each on the
           card, then ``scflow_torch.test.main`` evaluates them at the CLI's
@@ -112,6 +114,25 @@ Phases (each prints one JSON line; any failed check raises):
           disk batch's loss and gradient against the CPU; fit-step time
           beside the bare step's, the loader's samples/s alone and through
           ``prefetch`` with decode ms per sample.
+  pose_graph  ``test.py --pose-graph``: the eval_bop tree written again
+          from its seed, ``scflow_torch.test.main --pose-graph`` at the
+          CLI's width (256², 8 iterations, lowres, slot budget 16, f32,
+          camera-only graph): launches per packed batch (K1 1, K2 30), the
+          plain poses against eval_bop's (POSE_TOL), both metrics and the
+          averages' change, images of 2 or more objects, the pass's ms per
+          packed batch and per such image (timed between two syncs), and
+          the first batch's pass again on the CPU on the card's network
+          outputs (its first 2 such images' refined poses within
+          POSE_TOL).
+  parallel  the parallel layer on one card: ``initialize_distributed``
+          of one process starts no group; a world-1 NCCL group started
+          here carries 2 ``Trainer.fit`` steps of the
+          data-parallel path at the train phase's width (batch 16, 256²,
+          21 classes, 8 iterations, f32) against 2 plain train steps on
+          the same batch: the first loss bit-equal, the second within
+          1e-4, the parameters within 2.5·(lr₀ + lr₁), launches per fit
+          step K1 1, K2 30 and 30; ``graft_entry.entry()``'s forward and
+          ``dryrun_multichip(1)`` (one spawned NCCL rank).
 Then the ``kernels`` line (K1, the K2 forward and backward in f32 and in
 bf16, each with its launches on every path), the card line from nvidia-smi
 and, last, ``{"ok": true, "device": {...}}``. Exits non-zero without a
@@ -1379,20 +1400,44 @@ def phase_raft_train(bank) -> tuple:
     return launches
 
 
-def phase_sync(step, batch) -> dict:
+def phase_sync(step, batch, bank) -> dict:
     """One eval step, its batch already on the card, under the sync debug
     mode: "warn" first, so every synchronising call is listed by file and
-    line, then "error", which must raise nothing."""
+    line, then "error", which must raise nothing. The same for the eval
+    loop's pose-graph pass over the step's outputs (its slots in images of
+    4 objects) and for one ``make_masked_metric_step`` (the on-device
+    ADD(-S) accumulation)."""
     import warnings
 
     import torch
+
+    from scflow_torch.parallel import MetricAccumulator
+    from scflow_torch.training import build_points_bank
+    from scflow_torch.training.evaluate import (_pose_graph_refine,
+                                                make_masked_metric_step)
+
+    n = batch["labels"].shape[0]
+    metas = [(None, start, 4) for start in range(0, n, 4)]
+    accumulator = MetricAccumulator(num_classes=NUM_CLASS)
+    metric_step = make_masked_metric_step(
+        step, build_points_bank(bank, num_points=1000), accumulator,
+        device="cuda")
+    acc_state = accumulator.init("cuda")
+
+    def steps():
+        out = step(batch)
+        refined = _pose_graph_refine(out, batch, metas, BOP_BUDGET,
+                                     torch.device("cuda"))
+        metric_step(batch, acc_state)
+        return dict(out, pg_rotations=refined["rotations"],
+                    pg_translations=refined["translations"])
 
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            step(batch)
+            steps()
         finally:
             torch.cuda.set_sync_debug_mode("default")
     # (setting the mode itself warns that it is a prototype feature)
@@ -1401,14 +1446,18 @@ def phase_sync(step, batch) -> dict:
     check(not syncs, f"sync: the eval step synchronises at {syncs}")
     torch.cuda.set_sync_debug_mode("error")
     try:
-        out = step(batch)
+        out = steps()
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    check(bool(torch.isfinite(out["translations"]).all()),
+    check(bool(torch.isfinite(out["translations"]).all()
+               & torch.isfinite(out["pg_translations"]).all()),
           "sync: outputs not finite")
+    instances = accumulator.compute(acc_state)["num_instances"]
+    check(instances == 2 * n, f"sync: {instances} instances accumulated")
     fields = dict(batch=batch["labels"].shape[0], mode="error", raised=False,
-                  synchronising_calls=syncs)
+                  synchronising_calls=syncs,
+                  also=["pose_graph_pass", "masked_metric_step"])
     emit(phase="sync", **fields)
     return fields
 
@@ -1455,7 +1504,7 @@ def bop_cli_args(root: str, device: str, budget: int) -> list:
 
 def phase_eval_bop() -> tuple:
     """The BOP eval CLI on a tree the port writes on the card; returns the
-    loop's launches of K1 and the K2 forward."""
+    loop's launches of K1 and the K2 forward, and its results."""
     import os
     import tempfile
     from unittest import mock
@@ -1625,7 +1674,264 @@ def phase_eval_bop() -> tuple:
                      "cpu_seconds": cpu_s, **POSE_TOL},
          paeth_png_decode_s=paeth_s, bop_file_equal=True,
          phase_seconds=time.perf_counter() - t_phase)
+    return k1, k2, results
+
+
+def phase_pose_graph(eval_results: list) -> tuple:
+    """``test.py --pose-graph`` on the card: the eval_bop tree written
+    again from its seed, evaluated at the CLI's width with the scene pose
+    graph; returns the loop's launches of K1 and the K2 forward."""
+    import tempfile
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    import scflow_torch.test as cli
+    import scflow_torch.training.evaluate as evaluate_mod
+    from scflow_torch.tools.make_synthetic_bop import main as make_tree
+
+    t_phase = time.perf_counter()
+    pack, refine = evaluate_mod.pack_eval_batches, evaluate_mod._pose_graph_refine
+    slots, calls = [], []
+
+    def packed(items, budget):
+        for batch, metas in pack(items, budget):
+            slots.append(int(batch["sample_valid"].sum()))
+            yield batch, metas
+
+    def timed_refine(out, batch, metas, *args, **kw):
+        # the pass between two syncs (the loop's overlap is lost here)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        refined = refine(out, batch, metas, *args, **kw)
+        torch.cuda.synchronize()
+        calls.append(dict(s=time.perf_counter() - t0,
+                          groups=sum(n >= 2 for _, _, n in metas)))
+        if len(calls) == 1:
+            calls[0].update(out=out, batch=batch, metas=metas,
+                            refined=refined)
+        return refined
+
+    with tempfile.TemporaryDirectory(prefix="scflow_pose_graph_") as root:
+        t0 = time.perf_counter()
+        tree = make_tree(["--out", root, "--num-images", str(BOP_IMAGES),
+                          "--num-classes", str(NUM_CLASS), "--height",
+                          str(BOP_FRAME[0]), "--width", str(BOP_FRAME[1]),
+                          "--min-objects", str(BOP_OBJECTS[0]),
+                          "--max-objects", str(BOP_OBJECTS[1]), "--seed", "0",
+                          "--device", "cuda"])
+        write_s = time.perf_counter() - t0
+        patches = [mock.patch.object(evaluate_mod, "pack_eval_batches", packed),
+                   mock.patch.object(evaluate_mod, "_pose_graph_refine",
+                                     timed_refine)]
+        for p in patches:
+            p.start()
+        try:
+            reset_counts()
+            t0 = time.perf_counter()
+            metrics, results = cli.main(bop_cli_args(root, "cuda", BOP_BUDGET)
+                                        + ["--pose-graph", "--save-dir",
+                                           f"{root}/res"])
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t0
+            k1, k2, k2b = counts()
+        finally:
+            for p in patches:
+                p.stop()
+    batches = len(slots)
+    check(k2b == 0 and (k1, k2) == (batches, 30 * batches),
+          f"pose_graph: launches K1/K2 {k1}/{k2} over {batches} batches")
+    pg = metrics.pop("pose_graph")
+    check(pg["num_instances"] == metrics["num_instances"] == tree["objects"],
+          f"pose_graph: {pg['num_instances']} and {metrics['num_instances']} "
+          f"instances, {tree['objects']} objects")
+    check(all(np.isfinite(v) for v in pg.values()), "pose_graph: metric")
+    # the plain poses are eval_bop's
+    by_id = {r["img_id"]: r for r in eval_results}
+    rot_gap = trans_gap = 0.0
+    for r in results:
+        e = by_id[r["img_id"]]
+        rot_gap = max(rot_gap, float(np.abs(r["rotations"]
+                                            - e["rotations"]).max()))
+        diff = np.abs(r["translations"] - e["translations"])
+        check(bool((diff <= POSE_TOL["trans_atol"] + POSE_TOL["trans_rtol"]
+                    * np.abs(e["translations"])).all()),
+              f"pose_graph: plain translations {diff.max()} from eval_bop's")
+        trans_gap = max(trans_gap, float(diff.max()))
+    check(len(results) == BOP_IMAGES and rot_gap <= POSE_TOL["rot_atol"],
+          f"pose_graph: plain rotations {rot_gap} from eval_bop's")
+    multi = sum(c["groups"] for c in calls)
+    check(len(calls) == batches and multi > 0,
+          f"pose_graph: {len(calls)} passes, {multi} groups")
+
+    # the first batch's pass on the CPU, on the card's network outputs: the
+    # refined poses of its first 2 images of 2 or more objects
+    first = calls[0]
+    cpu_out = {k: v.cpu() for k, v in first["out"].items()}
+    t0 = time.perf_counter()
+    cpu = refine(cpu_out, first["batch"], first["metas"], BOP_BUDGET,
+                 torch.device("cpu"))
+    cpu_s = time.perf_counter() - t0
+    groups = [(start, n) for _, start, n in first["metas"] if n >= 2][:2]
+    rot_err = trans_err = 0.0
+    moved = 0.0
+    for start, n in groups:
+        sl = slice(start, start + n)
+        g_r = first["refined"]["rotations"][sl].cpu()
+        g_t = first["refined"]["translations"][sl].cpu()
+        rot_err = max(rot_err, (g_r - cpu["rotations"][sl]).abs().max().item())
+        diff = (g_t - cpu["translations"][sl]).abs()
+        check(bool((diff <= POSE_TOL["trans_atol"] + POSE_TOL["trans_rtol"]
+                    * cpu["translations"][sl].abs()).all()),
+              f"pose_graph cpu parity: translation err {diff.max().item()}")
+        trans_err = max(trans_err, diff.max().item())
+        moved = max(moved, (g_t - first["out"]["translations"][sl].cpu())
+                    .abs().max().item())
+    check(rot_err <= POSE_TOL["rot_atol"],
+          f"pose_graph cpu parity: rotation err {rot_err}")
+    delta = {k: pg[k] - metrics[k] for k in metrics if k.startswith("average/")}
+    check(any(v != 0 for v in delta.values()),
+          "pose_graph: the graph moved no pose enough to change a metric")
+    pass_ms = [1e3 * c["s"] for c in calls]
+    emit(phase="pose_graph", images=BOP_IMAGES, frame=list(BOP_FRAME),
+         classes=NUM_CLASS, objects=tree["objects"], image=list(SIZE),
+         iters=ITERS, lowres=True, dtype="float32", slot_budget=BOP_BUDGET,
+         camera_only=True, tree_write_s=write_s, batches=batches,
+         images_2_or_more_objects=multi, cli_s=cli_s,
+         pass_ms_per_batch=pass_ms,
+         pass_ms_per_batch_median=statistics.median(pass_ms),
+         pass_ms_per_multi_object_image=sum(pass_ms) / multi,
+         launches_per_batch={"rasterize_tiles": k1 / batches,
+                             "instance_norm_fwd": k2 / batches},
+         metric={k: metrics[k] for k in ("average/add_0.10d", "average/auc",
+                                         "instance/auc", "num_instances")},
+         pose_graph_metric={k: pg[k] for k in (
+             "average/add_0.10d", "average/auc", "instance/auc",
+             "num_instances")},
+         delta=delta,
+         plain_vs_eval_bop={"rotation_max_abs_err": rot_gap,
+                            "translation_max_abs_err": trans_gap, **POSE_TOL},
+         cpu_parity={"images": len(groups), "rotation_max_abs_err": rot_err,
+                     "translation_max_abs_err": trans_err,
+                     "max_pose_move_mm": moved, "cpu_pass_seconds": cpu_s,
+                     **POSE_TOL},
+         phase_seconds=time.perf_counter() - t_phase)
     return k1, k2
+
+
+def phase_parallel(bank) -> tuple:
+    """The parallel layer on one card: a world-1 NCCL group, 2 fit steps
+    of the data-parallel path at the train phase's width against 2 plain
+    steps on the same batch, the flagship forward of ``graft_entry.entry``
+    and ``dryrun_multichip(1)``; returns the fit's launches of K1, the K2
+    forward and backward."""
+    import socket
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from scflow_torch.data import synthetic_batch
+    from scflow_torch.graft_entry import dryrun_multichip, entry
+    from scflow_torch.parallel import (initialize_distributed, shard_batch,
+                                       world_size)
+    from scflow_torch.rendering import Renderer
+    from scflow_torch.training import (Config, DataConfig, ModelConfig,
+                                       RenderConfig, build_model,
+                                       build_points_bank, make_optimizer,
+                                       make_train_step, onecycle_lr)
+    from scflow_torch.training.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    cfg = Config(model=ModelConfig(num_class=NUM_CLASS, iters=ITERS,
+                                   test_iters=ITERS),
+                 render=RenderConfig(image_size=SIZE),
+                 data=DataConfig(batch_size=TRAIN_BATCH))
+    points = build_points_bank(bank, symmetric_classes=range(0, NUM_CLASS, 2),
+                               num_points=cfg.loss.num_loss_points)
+    renderer = Renderer(bank, image_size=SIZE)
+    batch = synthetic_batch(torch.Generator().manual_seed(0), renderer,
+                            TRAIN_BATCH)
+    model = build_model(cfg, device="cuda", seed=cfg.seed)
+    step = make_train_step(model, renderer, points, cfg,
+                           make_optimizer(cfg, model.parameters()),
+                           device="cuda")
+    plain = [step(batch) for _ in range(2)]
+    torch.cuda.synchronize()
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        address = f"127.0.0.1:{s.getsockname()[1]}"
+    # one process starts no group (JAX's rule); the world-1 NCCL group
+    # that drives the data-parallel path is started here
+    dev = initialize_distributed(address, 1, 0, device="cuda")
+    check(not dist.is_initialized(),
+          "parallel: initialize_distributed started a group of 1")
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://{address}",
+                            world_size=1, rank=0)
+    init_s = time.perf_counter() - t0
+    try:
+        check(dist.get_backend() == "nccl" and world_size() == 1,
+              f"parallel: backend {dist.get_backend()}, world {world_size()}")
+        with tempfile.TemporaryDirectory(prefix="scflow_parallel_") as work:
+            cfg.work_dir = work
+            trainer = Trainer(cfg, renderer, points, device=dev)
+            seen = []
+            train_step = trainer.train_step
+
+            def recorded(b):
+                seen.append(train_step(b))
+                return seen[-1]
+
+            trainer.train_step = recorded
+            reset_counts()
+            t0 = time.perf_counter()
+            trainer.fit(lambda _s: shard_batch(batch), num_steps=2)
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            launches = counts()
+        check(launches == (2, 60, 60),
+              f"parallel: fit launches K1/K2 fwd/K2 bwd {launches}")
+        check(torch.equal(seen[0]["loss"], plain[0]["loss"]),
+              f"parallel: first loss {seen[0]['loss'].item()} vs "
+              f"{plain[0]['loss'].item()}")
+        loss2_rel = ((seen[1]["loss"] - plain[1]["loss"]).abs()
+                     / plain[1]["loss"].abs()).item()
+        check(loss2_rel <= 1e-4, f"parallel: second loss rel {loss2_rel}")
+        lr_sum = onecycle_lr(0, cfg.optim) + onecycle_lr(1, cfg.optim)
+        param_gap = max((a.detach() - b.detach()).abs().max().item()
+                        for a, b in zip(trainer.model.parameters(),
+                                        model.parameters()))
+        check(param_gap <= RESUME_LR_MULT * lr_sum,
+              f"parallel: parameters {param_gap} apart (lr sum {lr_sum})")
+
+        fn, example = entry(device=dev)
+        t0 = time.perf_counter()
+        r, t = fn(*example)
+        torch.cuda.synchronize()
+        entry_ms = 1e3 * (time.perf_counter() - t0)
+        check(tuple(r.shape) == (2, 3, 3) and tuple(t.shape) == (2, 3)
+              and bool(torch.isfinite(r).all() & torch.isfinite(t).all()),
+              "parallel: entry forward")
+        t0 = time.perf_counter()
+        dry_loss = dryrun_multichip(1, device="cuda")
+        dry_s = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    emit(phase="parallel", backend="nccl", world=1, init_s=init_s,
+         batch=TRAIN_BATCH, image=list(SIZE), classes=NUM_CLASS, iters=ITERS,
+         dtype="float32", fit_steps=2, fit_s=fit_s,
+         launches=list(launches),
+         losses=[m["loss"].item() for m in seen],
+         plain_losses=[m["loss"].item() for m in plain],
+         first_loss_bit_equal=True, second_loss_rel_err=loss2_rel,
+         param_max_abs_diff=param_gap,
+         param_bound=RESUME_LR_MULT * lr_sum,
+         entry_forward_ms=entry_ms, dryrun_loss=dry_loss, dryrun_s=dry_s,
+         phase_seconds=time.perf_counter() - t_phase)
+    return launches
 
 
 def ycbv_layout(train: str, test: str, root: str) -> None:
@@ -2239,7 +2545,7 @@ def main() -> int:
                      "cpu_seconds": cpu_s, **POSE_TOL})
 
     phase_profile(model, renderer, cfg, step, batch)
-    phase_sync(step, batch)
+    phase_sync(step, batch, bank)
 
     full_cfg = Config(model=ModelConfig(num_class=NUM_CLASS, iters=ITERS,
                                         test_iters=ITERS, lowres_eval=False))
@@ -2261,9 +2567,11 @@ def main() -> int:
     train_bf16 = phase_train_bf16(bank)
     raft = phase_raft(renderer, batch)
     raft_train = phase_raft_train(bank)
-    eval_bop = phase_eval_bop()
+    *eval_bop, eval_results = phase_eval_bop()
+    pose_graph = phase_pose_graph(eval_results)
     train_bop = phase_train_bop(train_ms, smi)
     train_pbr = phase_train_pbr(train_ms, smi)
+    parallel = phase_parallel(bank)
     emit(phase="done", seconds_total=time.perf_counter() - t_start)
 
     # ``launches``: the row's own path (f32 or bf16); beside it every
@@ -2272,7 +2580,8 @@ def main() -> int:
     paths = {"main": main_counts, "bf16": (*bf16, 0), "raft": (*raft, 0),
              "train": train, "trainer": trainer, "train_bf16": train_bf16,
              "raft_train": raft_train, "eval_bop": (*eval_bop, 0),
-             "train_bop": train_bop, "train_pbr": train_pbr}
+             "train_bop": train_bop, "train_pbr": train_pbr,
+             "pose_graph": (*pose_graph, 0), "parallel": parallel}
 
     def by_path(i, names):
         return {p: paths[p][i] for p in names}
@@ -2280,11 +2589,12 @@ def main() -> int:
     k1_row.update(launches=main_run["k1"], launches_by_path=by_path(0, paths))
     fwd_rows[0].update(launches=main_run["k2"], launches_by_path=by_path(
         1, ("main", "raft", "train", "trainer", "raft_train", "eval_bop",
-            "train_bop", "train_pbr")))
+            "train_bop", "train_pbr", "pose_graph", "parallel")))
     fwd_rows[1].update(launches=bf16[1], launches_by_path=by_path(
         1, ("bf16", "train_bf16")))
     bwd_rows[0].update(launches=train[2], launches_by_path=by_path(
-        2, ("train", "trainer", "raft_train", "train_bop", "train_pbr")))
+        2, ("train", "trainer", "raft_train", "train_bop", "train_pbr",
+            "parallel")))
     bwd_rows[1].update(launches=train_bf16[2],
                        launches_by_path=by_path(2, ("train_bf16",)))
     rows = [k1_row, *fwd_rows, *bwd_rows]

@@ -4,12 +4,19 @@ matching. Per-class mesh points come from a (C, P, 3) points bank with
 validity masks; symmetric classes match each target point to its nearest
 predicted point. Functions are batched over samples, and the sequence
 losses loop over the (T, ...) iteration axis as the JAX ``vmap`` maps it.
+
+Under a process group each batch mean divides this process's sum by the
+global denominator (the all-reduced weights or counts), so the losses of
+the processes sum to the loss of the global batch and so do their
+gradients.
 """
 from __future__ import annotations
 
 import torch
 
 from ..geometry.se3 import matvec3, transform_points
+from ..parallel.collect import global_sum
+from ..parallel.mesh import world_size
 
 _EPS = 1e-10
 
@@ -42,7 +49,7 @@ def raft_flow_loss(pred_flow: torch.Tensor, gt_flow: torch.Tensor,
     if sample_weight is not None:
         v = v * sample_weight.to(v.dtype)[:, None, None]
     l1 = (pred_flow - gt_flow).abs()
-    return (v[..., None] * l1).sum() / (v.sum() + _EPS)
+    return (v[..., None] * l1).sum() / (global_sum(v.sum()) + _EPS)
 
 
 def mask_l1_loss(pred_mask: torch.Tensor, gt_mask: torch.Tensor,
@@ -50,10 +57,10 @@ def mask_l1_loss(pred_mask: torch.Tensor, gt_mask: torch.Tensor,
     """Mean L1 over (N, H, W); with ``sample_weight`` (N,) the weighted
     mean of the per-sample means."""
     if sample_weight is None:
-        return (pred_mask - gt_mask).abs().mean()
+        return (pred_mask - gt_mask).abs().mean() / world_size()
     w = sample_weight.to(pred_mask.dtype)
     per_sample = (pred_mask - gt_mask).abs().mean(dim=(-2, -1))
-    return (per_sample * w).sum() / (w.sum() + _EPS)
+    return (per_sample * w).sum() / (global_sum(w.sum()) + _EPS)
 
 
 def _nearest_match(target: torch.Tensor, pred: torch.Tensor,
@@ -123,9 +130,9 @@ def disentangled_point_matching_loss(pred_r, pred_t, gt_r, gt_t, points,
 
 def _batch_mean(per_sample: torch.Tensor, sample_weight) -> torch.Tensor:
     if sample_weight is None:
-        return per_sample.mean()
+        return per_sample.mean() / world_size()
     w = sample_weight.to(per_sample.dtype)
-    return (per_sample * w).sum() / (w.sum() + _EPS)
+    return (per_sample * w).sum() / (global_sum(w.sum()) + _EPS)
 
 
 def sequence_pose_loss(seq_r, seq_t, gt_r, gt_t, points, point_valid,

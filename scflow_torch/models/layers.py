@@ -20,6 +20,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.fused_norm import instance_norm
+from ..parallel.collect import all_reduce_with_grad
+from ..parallel.mesh import world_size
 
 
 class Conv2d(nn.Conv2d):
@@ -92,7 +94,13 @@ class BatchNorm(nn.BatchNorm2d):
     them, the biased variance included. An optional (N,) ``sample_mask``
     (> 0.5 counts) keeps padded samples out of the statistics; they are
     still normalised. Both modes compute in f32 and round once to the
-    compute ``dtype`` (default: the input's)."""
+    compute ``dtype`` (default: the input's).
+
+    Under a process group of more than one process the train-mode
+    statistics are those of the global batch, as flax's under a
+    global-batch ``jit``: each process's masked sums and count are
+    all-reduced (with their gradient), so every process normalises alike
+    and moves its running statistics alike."""
 
     def __init__(self, channels: int, eps: float = 1e-5,
                  momentum: float = 0.1, dtype: torch.dtype | None = None):
@@ -105,14 +113,19 @@ class BatchNorm(nn.BatchNorm2d):
         if not self.training:
             return super().forward(x.float()).to(out_dtype)
         xf = x.float()
-        if sample_mask is None:
+        if sample_mask is None and world_size() == 1:
             mean = xf.mean(dim=(0, 2, 3))
             mean2 = xf.square().mean(dim=(0, 2, 3))
         else:
-            m = (sample_mask > 0.5).to(xf.dtype)[:, None, None, None]
+            m = (torch.ones(x.shape[0], dtype=xf.dtype, device=x.device)
+                 if sample_mask is None else (sample_mask > 0.5).to(xf.dtype))
+            m = m[:, None, None, None]
             count = m.sum() * (x.shape[2] * x.shape[3])
-            mean = (xf * m).sum(dim=(0, 2, 3)) / count
-            mean2 = (xf.square() * m).sum(dim=(0, 2, 3)) / count
+            sums = all_reduce_with_grad(torch.cat([
+                (xf * m).sum(dim=(0, 2, 3)),
+                (xf.square() * m).sum(dim=(0, 2, 3)), count[None]]))
+            c = x.shape[1]
+            mean, mean2 = sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
         var = (mean2 - mean.square()).clamp_min(0.0)
         with torch.no_grad():      # flax's order: 0.9·running + 0.1·batch
             for buf, v in ((self.running_mean, mean), (self.running_var, var)):

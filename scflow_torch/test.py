@@ -1,24 +1,33 @@
 """Evaluation CLI of the port, the twin of the JAX package's ``test.py``:
 refine the initial poses of a BOP test split (a RefineDataset: BOP layout
-plus an initial-pose root) in packed batches on one device, compute
-ADD(-S) / AUC / REP with the exact ``ADDMetric``, and optionally write
-BOP-format results (``--save-dir``, ``--format-only``).
+plus an initial-pose root) in packed batches, compute ADD(-S) / AUC / REP
+with the exact ``ADDMetric``, and optionally write BOP-format results
+(``--save-dir``, ``--format-only``).
 
   python -m scflow_torch.test --data-root DATA/test \\
       --ref-annots-root DATA/init_poses --image-list DATA/image_lists/test.txt \\
-      --mesh-dir DATA/models [--device cpu] [--checkpoint DIR]
+      --mesh-dir DATA/models [--device cpu] [--checkpoint DIR] [--pose-graph]
 
 ``--config <recipe>`` supplies the recipe's test split, initial poses and
 mesh dir where the flags do not. With ``--num-classes 21`` (the default)
 the YCB-V symmetric classes and mesh diameters apply, whatever the
-meshes, as in the JAX CLI. The scene pose-graph flag ``--pose-graph`` is
-not defined, so argparse refuses it: the pose graph comes with the
-parallel slice.
+meshes, as in the JAX CLI. ``--pose-graph`` also refines every image of 2
+or more objects with the scene pose graph (a shared per-image camera
+correction on flow-derived targets) and prints a second table, with each
+average's change against the plain one.
+
+Several processes split the images (``SCFLOW_NUM_PROCESSES``,
+``SCFLOW_PROCESS_ID``, ``SCFLOW_COORDINATOR``; see
+``parallel.mesh.initialize_distributed``): each refines images
+``rank::world`` on its own device and every process prints the metrics of
+all images; rank 0 writes the BOP files of all images.
 """
 from __future__ import annotations
 
 import argparse
 import sys
+
+import torch
 
 
 def parse_args(argv=None):
@@ -48,6 +57,10 @@ def parse_args(argv=None):
     p.add_argument("--slot-budget", type=int, default=16,
                    help="object slots per packed device batch (several "
                         "images share one batch)")
+    p.add_argument("--pose-graph", action="store_true",
+                   help="also run the scene pose graph (a shared per-image "
+                        "camera correction on flow-derived targets) and "
+                        "report ADD with and without it")
     p.add_argument("--exact-eval", action="store_true",
                    help="disable the low-res pose-flow eval fast path "
                         "(ModelConfig.lowres_eval) for exactness checks")
@@ -82,8 +95,13 @@ def resolve_args(args):
 
 def main(argv=None) -> tuple[dict, list]:
     """Run the CLI on ``argv`` (default ``sys.argv[1:]``); returns the
-    metric dict and the per-image results (kept when results are written)."""
+    metric dict and the per-image results (kept when results are written).
+    With ``--pose-graph`` the metric dict also holds the pose-graph
+    metric's dict under ``"pose_graph"``."""
     args = resolve_args(parse_args(argv))
+    from .parallel import initialize_distributed, rank, world_size
+
+    device = initialize_distributed(device=args.device)
 
     from .data.bop import RefineDataset
     from .data.loader import TestBatchBuilder
@@ -103,13 +121,13 @@ def main(argv=None) -> tuple[dict, list]:
                  render=RenderConfig(image_size=(size, size)),
                  data=DataConfig(image_scale=size),
                  work_dir=args.work_dir)
-    bank = load_mesh_dir(args.mesh_dir, ext=args.mesh_ext, device=args.device)
+    bank = load_mesh_dir(args.mesh_dir, ext=args.mesh_ext, device=device)
     symmetric = YCBV_SYMMETRIC_CLASSES if args.num_classes == 21 else ()
     diameters = YCBV_MESH_DIAMETERS if args.num_classes == 21 else None
     renderer = Renderer(bank, image_size=(size, size))
     points = build_points_bank(bank, symmetric_classes=symmetric,
                                diameters=diameters, num_points=1000)
-    trainer = Trainer(cfg, renderer, points, device=args.device)
+    trainer = Trainer(cfg, renderer, points, device=device)
     if args.checkpoint:
         trainer.resume(args.checkpoint)
     if args.torch_checkpoint:
@@ -122,16 +140,26 @@ def main(argv=None) -> tuple[dict, list]:
                             args.image_list, class_names=YCBV_CLASS_NAMES)
     mesh_points = list(points.points.cpu().numpy())
     builder = TestBatchBuilder(dataset, cfg, mesh_points)
-    metric = ADDMetric(points_per_class=mesh_points,
-                       diameters=points.diameters.cpu().numpy(),
-                       symmetric_classes=tuple(symmetric),
-                       class_names=YCBV_CLASS_NAMES)
+
+    def new_metric():
+        return ADDMetric(points_per_class=mesh_points,
+                         diameters=points.diameters.cpu().numpy(),
+                         symmetric_classes=tuple(symmetric),
+                         class_names=YCBV_CLASS_NAMES)
+
+    metric = new_metric()
+    pg_metric = new_metric() if args.pose_graph else None
     write = bool(args.save_dir or args.format_only)
     metrics, results = evaluate_dataset(
         trainer, builder, metric, slot_budget=args.slot_budget,
-        limit=args.limit, collect_results=write)
+        limit=args.limit, collect_results=write, pose_graph_metric=pg_metric)
 
-    if write:
+    if write and world_size() > 1:
+        gathered = [None] * world_size()
+        torch.distributed.all_gather_object(gathered, results)
+        results = sorted(sum(gathered, []),
+                         key=lambda r: (r["scene_id"], r["img_id"]))
+    if write and rank() == 0:
         save_dir = args.save_dir or f"{args.work_dir}/bop_results"
         paths = write_bop_results(results, save_dir)
         print(f"wrote {len(paths)} BOP scene files to {save_dir}")
@@ -140,6 +168,18 @@ def main(argv=None) -> tuple[dict, list]:
         for k in sorted(metrics):
             if k.startswith(("average/", "instance/")) or k == "num_instances":
                 print(f"{k}: {metrics[k]}")
+    if pg_metric is not None and not args.format_only:
+        pg_metrics = pg_metric.compute()
+        if pg_metrics:
+            print("\n== with scene pose-graph refinement ==")
+            print(format_metric_table(pg_metrics))
+            for k in sorted(pg_metrics):
+                if k.startswith("average/"):
+                    base = metrics.get(k)
+                    delta = (f"  (Δ {pg_metrics[k] - base:+.4f})"
+                             if isinstance(base, float) else "")
+                    print(f"{k}: {pg_metrics[k]}{delta}")
+        metrics = dict(metrics, pose_graph=pg_metrics)
     return metrics, results
 
 

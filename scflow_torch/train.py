@@ -22,10 +22,28 @@ on-device ADD(-S) eval runs over 4 seeded synthetic batches.
 
 Unlike the JAX CLI, the port builds no sample batch before training: its
 model is initialised without one.
+
+Data-parallel training over several processes, one per device (here two
+on the CPU):
+
+  SCFLOW_NUM_PROCESSES=2 SCFLOW_PROCESS_ID=0 python -m scflow_torch.train \\
+      --synthetic --device cpu --steps 2 --image-size 64 --num-classes 3 \\
+      --batch-size 4 &
+  SCFLOW_NUM_PROCESSES=2 SCFLOW_PROCESS_ID=1 python -m scflow_torch.train \\
+      --synthetic --device cpu --steps 2 --image-size 64 --num-classes 3 \\
+      --batch-size 4
+
+With ``--synthetic`` every process renders the same global batch
+(``--batch-size``) from the seed and trains on its slice
+(``parallel.shard_batch``). From disk each process builds only its share
+of the global batch, from a stream of its own (``_train_builder``), so no
+process decodes another's images. Rank 0 writes the logs, panels and
+checkpoints.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 
@@ -38,6 +56,7 @@ from .data.bop import SuperviseTrainDataset
 from .data.loader import (SceneTrainBatchBuilder, TestBatchBuilder,
                           TrainBatchBuilder, prefetch)
 from .metrics import ADDMetric
+from .parallel import initialize_distributed, rank, shard_batch, world_size
 from .rendering import Renderer, load_mesh_dir, make_test_meshes
 from .training import (YCBV_CLASS_NAMES, YCBV_MESH_DIAMETERS,
                        YCBV_SYMMETRIC_CLASSES, Config, build_points_bank)
@@ -132,7 +151,10 @@ def resolve_config(args):
 
 
 def _train_builder(args, cfg, train_spec, mesh_points, diameters):
-    """The disk batch builder of the CLI's data flags or the recipe."""
+    """The disk batch builder of the CLI's data flags or the recipe. Under
+    a process group it builds this rank's share of the global batch
+    (``batch_size`` / world samples, or ``scene_images`` / world images),
+    from its own stream: the seed plus 1000003 × the rank."""
     sample_num = -1 if cfg.data.scene_mode else 1
     if args.data_root is not None:
         dataset = SuperviseTrainDataset(
@@ -142,19 +164,29 @@ def _train_builder(args, cfg, train_spec, mesh_points, diameters):
     else:
         dataset = build_dataset(train_spec, seed=cfg.seed,
                                 sample_num=sample_num)
-    if cfg.data.scene_mode:
+    world, seed = world_size(), cfg.seed + 1_000_003 * rank()
+    d = cfg.data
+    if world > 1:
+        flag, share = (("--scene-images", d.scene_images) if d.scene_mode
+                       else ("--batch-size", d.batch_size))
+        if share % world:
+            raise ValueError(f"{flag} {share} does not divide over {world} "
+                             f"processes")
+        d = dataclasses.replace(d, batch_size=d.batch_size // world,
+                                scene_images=d.scene_images // world)
+        cfg = dataclasses.replace(cfg, data=d)
+    if d.scene_mode:
         return SceneTrainBatchBuilder(
-            dataset, cfg, mesh_points, diameters, seed=cfg.seed,
-            num_images=cfg.data.scene_images,
-            slots_per_image=cfg.data.slots_per_image)
-    return TrainBatchBuilder(dataset, cfg, mesh_points, diameters,
-                             seed=cfg.seed)
+            dataset, cfg, mesh_points, diameters, seed=seed,
+            num_images=d.scene_images, slots_per_image=d.slots_per_image)
+    return TrainBatchBuilder(dataset, cfg, mesh_points, diameters, seed=seed)
 
 
 def main(argv=None) -> Trainer:
     """Run the CLI on ``argv`` (default ``sys.argv[1:]``); returns the
     trainer after ``fit``."""
     args = parse_args(argv)
+    device = initialize_distributed(device=args.device)
     cfg, train_spec, test_spec = resolve_config(args)
     num_classes = cfg.model.num_class
     size = cfg.data.image_scale
@@ -164,7 +196,7 @@ def main(argv=None) -> Trainer:
     if args.synthetic and mesh_dir and not os.path.isdir(mesh_dir):
         mesh_dir = None  # smoke mode without the recipe's meshes on disk
     if mesh_dir:
-        bank = load_mesh_dir(mesh_dir, ext=mesh_ext, device=args.device)
+        bank = load_mesh_dir(mesh_dir, ext=mesh_ext, device=device)
         if train_spec is not None:
             symmetric = train_spec.symmetric_classes
             diameters = train_spec.diameters
@@ -172,15 +204,14 @@ def main(argv=None) -> Trainer:
             symmetric = YCBV_SYMMETRIC_CLASSES if num_classes == 21 else ()
             diameters = YCBV_MESH_DIAMETERS if num_classes == 21 else None
     else:
-        bank = make_test_meshes(num_classes, subdivisions=2,
-                                device=args.device)
+        bank = make_test_meshes(num_classes, subdivisions=2, device=device)
         symmetric, diameters = (), None
 
     renderer = Renderer(bank, image_size=(size, size))
     points = build_points_bank(bank, symmetric_classes=symmetric,
                                diameters=diameters,
                                num_points=cfg.loss.num_loss_points)
-    trainer = Trainer(cfg, renderer, points, device=args.device)
+    trainer = Trainer(cfg, renderer, points, device=device)
     if args.resume:
         trainer.resume()
     mesh_points = list(points.points.cpu().numpy())
@@ -197,9 +228,9 @@ def main(argv=None) -> Trainer:
             return next(batches)
     else:
         def get_batch(step: int) -> dict:
-            return synthetic_batch(
+            return shard_batch(synthetic_batch(
                 torch.Generator().manual_seed(cfg.seed * 1000_003 + step),
-                renderer, cfg.data.batch_size)
+                renderer, cfg.data.batch_size))
 
     eval_fn = None
     if args.eval_every:
@@ -221,9 +252,9 @@ def main(argv=None) -> Trainer:
             # no test split on disk: masked on-device ADD(-S) over
             # synthetic jittered-GT batches (slot-aligned, no matching)
             def eval_fn(tr: Trainer) -> dict:
-                evals = [synthetic_batch(
+                evals = [shard_batch(synthetic_batch(
                     torch.Generator().manual_seed(7_777 + i), renderer,
-                    cfg.data.batch_size) for i in range(4)]
+                    cfg.data.batch_size)) for i in range(4)]
                 return evaluate_device_accumulator(tr, evals, points,
                                                    num_classes)
 

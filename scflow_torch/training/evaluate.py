@@ -1,5 +1,4 @@
-"""Evaluation loops (port of ``scflow_tpu/training/evaluate.py:33-105,
-144-330``).
+"""Evaluation loops (port of ``scflow_tpu/training/evaluate.py``).
 
 - :func:`evaluate_dataset` — the eval over a BOP test split: a thread pool
   decodes and crops images in dataset order (:func:`_prefetch_items`),
@@ -9,14 +8,16 @@
   AUC / REP, ``metrics.ADDMetric``). Two batches stay in flight: each
   batch's poses go to pinned host memory by an asynchronous copy behind a
   CUDA event, and the host waits for that event only when it consumes the
-  batch, so decode, crop and matching overlap the device.
+  batch, so decode, crop and matching overlap the device. With a second
+  metric, every image of 2 or more objects also goes through the scene
+  pose graph on the device, right after its batch is refined
+  (:func:`_pose_graph_refine`). Under a process group each process
+  evaluates images ``rank::world`` and the metrics' records are gathered.
 - :func:`evaluate_device_accumulator` — refine padded batches whose
   predictions line up with the GT slot for slot (jittered-GT synthetic
   batches, scene batches) and accumulate masked ADD(-S) errors on the
-  device; the host reads the accumulator once, at the end.
-
-The scene pose-graph pass and the cross-process gather come with the
-parallel slice.
+  device; the host reads the accumulator once, at the end (summed over
+  the processes first).
 """
 from __future__ import annotations
 
@@ -28,8 +29,12 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..geometry.se3 import add_error, adds_error
-from ..parallel.collect import MetricAccumulator
+from ..parallel.collect import (MetricAccumulator, allgather_results,
+                                reduce_metrics)
+from ..parallel.mesh import rank, world_size
+from ..parallel.pose_graph import pose_graph_group, slot_targets
 from .points_bank import PointsBank
 from .steps import _to_device
 
@@ -100,16 +105,53 @@ def _prefetch_items(builder, indices, depth: int = 16, workers: int = 6):
             yield item
 
 
-def _fetch_async(out: dict):
+def _pose_graph_refine(out: dict, batch: dict, metas: list, budget: int,
+                       device: torch.device,
+                       camera_only: bool = True) -> dict | None:
+    """Scene pose-graph pass over a packed batch, on the device: every
+    image of 2 or more objects is one group of slots, padded to ``budget``
+    with copies of its first slot as the JAX package pads them (an image
+    of one object passes through: its camera block is pure gauge). Each
+    slot carries its own crop K. Returns the poses of every slot, refined
+    where its image went through the graph, or None when no image has 2
+    objects. The group indices go up through pinned memory without
+    blocking."""
+    groups = [(start, n) for _, start, n in metas if n >= 2]
+    if not groups:
+        return None
+    rows = [[*range(start, start + n)] + [start] * (budget - n)
+            for start, n in groups]
+    valid = [[1.0] * n + [0.0] * (budget - n) for _, n in groups]
+    slots = _to_device(np.asarray(rows, np.int64), device)
+    valid = _to_device(np.asarray(valid, np.float32), device)
+    k = _to_device(batch["k"], device)
+    rotations = out["rotations"].float()
+    translations = out["translations"].float()
+    targets = slot_targets(out["flow"], out["masks"][..., 0], out["depth"],
+                           out["ref_rotations"], out["ref_translations"], k)
+    refined_r, refined_t = rotations.clone(), translations.clone()
+    for i, (start, n) in enumerate(groups):
+        pg = pose_graph_group(targets, rotations, translations, k, slots[i],
+                              valid[i], camera_only=camera_only)
+        refined_r[start:start + n] = pg["rotations"][:n]
+        refined_t[start:start + n] = pg["translations"][:n]
+    return {"rotations": refined_r, "translations": refined_t}
+
+
+def _fetch_async(out: dict, refined: dict | None = None):
     """Start the device→host copy of a batch's poses: one concatenated
-    (N, 12 or 13) f32 buffer copied without blocking into pinned memory,
-    and a CUDA event after the copy; on the CPU the buffer itself and no
-    event. Returns (host tensor, event or None)."""
+    (N, 12 or 13, + 12 with the pose graph's ``refined`` poses) f32 buffer
+    copied without blocking into pinned memory, and a CUDA event after the
+    copy; on the CPU the buffer itself and no event. Returns (host tensor,
+    event or None)."""
     n = out["rotations"].shape[0]
     small = [out["rotations"].reshape(n, 9).float(),
              out["translations"].float()]
     if "pnp_valid" in out:
         small.append(out["pnp_valid"].float()[:, None])
+    if refined is not None:
+        small += [refined["rotations"].reshape(n, 9),
+                  refined["translations"]]
     packed = torch.cat(small, dim=1)
     if packed.device.type != "cuda":
         return packed, None
@@ -120,12 +162,17 @@ def _fetch_async(out: dict):
     return host, event
 
 
-def _unpack_outputs(small: np.ndarray, had_pnp: bool) -> dict:
+def _unpack_outputs(small: np.ndarray, had_pnp: bool,
+                    had_refined: bool) -> dict:
     n = small.shape[0]
     out = {"rotations": small[:, :9].reshape(n, 3, 3),
            "translations": small[:, 9:12]}
     if had_pnp:
         out["pnp_valid"] = small[:, 12] > 0.5
+    if had_refined:
+        i = 13 if had_pnp else 12
+        out["pg_rotations"] = small[:, i:i + 9].reshape(n, 3, 3)
+        out["pg_translations"] = small[:, i + 9:i + 12]
     return out
 
 
@@ -133,7 +180,8 @@ def evaluate_dataset(trainer, builder, metric, *, slot_budget: int = 16,
                      limit: int | None = None, collect_results: bool = False,
                      progress_every: int = 50,
                      progress: Callable = print,
-                     pose_graph_metric=None) -> tuple[dict, list]:
+                     pose_graph_metric=None,
+                     pose_graph_camera_only: bool = True) -> tuple[dict, list]:
     """Batched eval over a TestBatchBuilder on the trainer's device.
 
     Packs images into ``slot_budget``-slot batches, refines each with
@@ -141,22 +189,30 @@ def evaluate_dataset(trainer, builder, metric, *, slot_budget: int = 16,
     the host (``metric.process`` with the image's original K) and, with
     ``collect_results``, keeps each image's prediction for the BOP writer.
     The first ``limit`` images are evaluated. Returns ``(metric.compute(),
-    results)``. ``pose_graph_metric`` (the scene pose-graph pass) is not
-    ported yet and raises ``ValueError``.
-    """
-    if pose_graph_metric is not None:
-        raise ValueError("the scene pose-graph pass is not ported yet")
+    results)``.
+
+    ``pose_graph_metric``: images of 2 or more objects also go through the
+    scene pose graph (a shared camera correction on flow-derived targets,
+    :func:`_pose_graph_refine`, ``camera_only`` by default) and this
+    second metric takes the refined poses (an image of one object: its
+    poses as they are). Under a process group each process evaluates
+    images ``rank::world`` and both metrics' records are gathered, so
+    every process computes the metrics of all images; ``results`` stay
+    per process."""
     total = len(builder) if limit is None else min(limit, len(builder))
-    indices = range(total)
+    indices = range(rank(), total, world_size())
     results = []
     n_images = 0
     packed = pack_eval_batches(_prefetch_items(builder, indices), slot_budget)
+    keys = ("rotations", "translations", "pnp_valid")
+    if pose_graph_metric is not None:
+        keys += ("flow", "masks", "depth", "ref_rotations", "ref_translations")
 
-    def consume(host, event, had_pnp, metas):
+    def consume(host, event, had_pnp, had_refined, metas):
         nonlocal n_images
         if event is not None:
             event.synchronize()             # this batch's copy, no later one
-        out = _unpack_outputs(host.numpy(), had_pnp)
+        out = _unpack_outputs(host.numpy(), had_pnp, had_refined)
         for item, start, n in metas:
             pred = {"labels": np.asarray(item["labels"][:n]),
                     "rotations": out["rotations"][start:start + n],
@@ -170,6 +226,12 @@ def evaluate_dataset(trainer, builder, metric, *, slot_budget: int = 16,
                       "rotations": item["gt_rotations"],
                       "translations": item["gt_translations"]}
                 metric.process(pred, gt, k=item["ori_k"])
+                if pose_graph_metric is not None:
+                    if had_refined:
+                        pred = dict(
+                            pred, rotations=out["pg_rotations"][start:start + n],
+                            translations=out["pg_translations"][start:start + n])
+                    pose_graph_metric.process(pred, gt, k=item["ori_k"])
             n_images += 1
             if progress_every and n_images % progress_every == 0:
                 progress(f"[{n_images}/{len(indices)}]", flush=True)
@@ -178,14 +240,22 @@ def evaluate_dataset(trainer, builder, metric, *, slot_budget: int = 16,
     # runs the two after it
     pending: deque = deque()
     for batch, metas in packed:
-        out = trainer.predict({k: batch[k] for k in EVAL_KEYS},
-                              keys=("rotations", "translations", "pnp_valid"),
+        out = trainer.predict({k: batch[k] for k in EVAL_KEYS}, keys=keys,
                               sync=False)
-        pending.append((*_fetch_async(out), "pnp_valid" in out, metas))
+        refined = None
+        if pose_graph_metric is not None:
+            refined = _pose_graph_refine(out, batch, metas, slot_budget,
+                                         trainer.device,
+                                         camera_only=pose_graph_camera_only)
+        pending.append((*_fetch_async(out, refined), "pnp_valid" in out,
+                        refined is not None, metas))
         if len(pending) > 2:
             consume(*pending.popleft())
     while pending:
         consume(*pending.popleft())
+    for m in (metric, pose_graph_metric):
+        if m is not None and world_size() > 1:
+            m.load_arrays(allgather_results(m.records_arrays()))
     return metric.compute(), results
 
 
@@ -210,11 +280,12 @@ def make_masked_metric_step(eval_step: Callable, points_bank: PointsBank,
     """Step ``(batch, acc_state) -> acc_state``: refine a padded batch with
     ``eval_step`` and add its masked ADD(-S) errors to the accumulator on
     ``device``, with no host sync. ``points_bank`` must be on ``device``."""
+    dev = resolve_device(device)
 
     @torch.inference_mode()
     def step(batch: dict, acc_state: dict) -> dict:
         out = eval_step(batch)
-        batch = {k: _to_device(v, device) for k, v in batch.items()}
+        batch = {k: _to_device(v, dev) for k, v in batch.items()}
         labels = batch["labels"].long()
         err = pose_errors(out["rotations"], out["translations"],
                           batch["gt_rotations"], batch["gt_translations"],
@@ -231,9 +302,10 @@ def evaluate_device_accumulator(trainer, batches: Iterable[dict],
                                 num_classes: int) -> dict:
     """Masked ADD(-S) eval on the trainer's device over padded batches
     carrying gt_rotations / gt_translations and optionally sample_valid,
-    with ``trainer.eval_step`` at the trainer's weights. Returns the
-    accumulator's metric dict (thresholded accuracies, histogram AUC and
-    its bracket)."""
+    with ``trainer.eval_step`` at the trainer's weights; under a process
+    group each process brings its own batches and the states are summed
+    before ``compute``. Returns the accumulator's metric dict
+    (thresholded accuracies, histogram AUC and its bracket)."""
     accumulator = MetricAccumulator(num_classes=num_classes)
     step = make_masked_metric_step(trainer.eval_step,
                                    points_bank.to(trainer.device),
@@ -241,4 +313,4 @@ def evaluate_device_accumulator(trainer, batches: Iterable[dict],
     state = accumulator.init(trainer.device)
     for batch in batches:
         state = step(batch, state)
-    return accumulator.compute(state)
+    return accumulator.compute(reduce_metrics(state))

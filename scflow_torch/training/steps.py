@@ -13,6 +13,11 @@ Train: render at the reference pose → ``scflow_loss`` (RAFT:
 ``raft_loss``) → backward → the optax recipe's global-norm clip and AdamW with the linear OneCycle
 schedule. ``make_train_step`` and ``make_multi_cycle_train_step`` update
 the model and the optimizer in place and return the step's metrics.
+Under a process group (``parallel.mesh``) the train steps are
+data-parallel, each process on its shard of the global batch: batch norm
+and the losses' batch means take global statistics, the gradients are
+summed before the clip and the metrics are summed, so every process
+applies the update of the global batch.
 
 Batches may hold numpy arrays or tensors, in the JAX layout: real_images
 (N, H, W, 3) uint8 or normalised float, ref_rotations (N, 3, 3),
@@ -36,6 +41,7 @@ from ..models.flow_pose import solve_pose_from_flow
 from ..models.heads import identity_rotation_bias
 from ..models.layers import FusedInstanceNorm
 from ..models.refiner import RAFTRefiner, SCFlowRefiner
+from ..parallel.collect import all_reduce_grads_, reduce_metrics
 from ..rendering.renderer import Renderer
 from .config import Config, OptimConfig
 from .points_bank import PointsBank
@@ -450,13 +456,17 @@ def _train_cycle(model, renderer, points_bank, cfg, optimizer, batch, norm):
     loss.backward()
     grads = [p.grad for g in optimizer.param_groups for p in g["params"]
              if p.grad is not None]
+    # data-parallel: sum the processes' gradients before the clip, so each
+    # clips by the global norm and takes the same update
+    all_reduce_grads_(grads)
+    metrics = reduce_metrics({k: v.detach() for k, v in metrics.items()})
     metrics["grad_norm"] = clip_by_global_norm_(grads,
                                                 cfg.optim.grad_clip_norm)
     lr = onecycle_lr(_updates_done(optimizer), cfg.optim)
     for group in optimizer.param_groups:
         group["lr"] = lr
     optimizer.step()
-    return {k: v.detach() for k, v in metrics.items()}, outputs
+    return metrics, outputs
 
 
 def _train_setup(model, renderer, points_bank, cfg, device):

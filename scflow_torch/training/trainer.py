@@ -6,8 +6,13 @@ optional eval, on one device; batches come from any iterator or
 
 The state is the model and its AdamW optimizer, both changed in place by
 the train step; ``Trainer.step`` (the JAX ``TrainState.step``) is the
-count of updates AdamW has applied. Data-parallel training comes with a
-later slice.
+count of updates AdamW has applied.
+
+Under a process group (``parallel.mesh.initialize_distributed``) the
+train step is data-parallel: each process feeds its shard of the global
+batch and every process holds the same state. Only rank 0 writes the
+checkpoints, the logs and the panels (the JAX package's primary host);
+``resume`` reads on every rank, and an ``eval_fn`` runs on every rank.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import torch
 
 from ..device import resolve_device
 from ..models.refiner import RAFTRefiner, SCFlowRefiner
+from ..parallel.mesh import rank
 from ..rendering.renderer import Renderer
 from .checkpoint import (load_torch_checkpoint, restore_checkpoint,
                          save_checkpoint)
@@ -166,9 +172,11 @@ class Trainer:
         get_batch = (batch_iterator if callable(batch_iterator)
                      else lambda _s, _it=iter(batch_iterator): next(_it))
         ckpt_dir = os.path.join(self.cfg.work_dir, "checkpoints")
+        primary = rank() == 0
 
         panel_step = image_logger = None
-        if panel_every and not isinstance(self.model, RAFTRefiner):
+        if (primary and panel_every
+                and not isinstance(self.model, RAFTRefiner)):
             panel_step = make_panel_step(self.model, self.renderer, self.cfg,
                                          device=self.device)
             image_logger = ImageLogger(self.cfg.work_dir,
@@ -181,7 +189,8 @@ class Trainer:
                 batch = get_batch(step)
                 metrics = self.train_step(batch)
 
-                if step == start or (step + 1) % self.cfg.log_interval == 0:
+                if primary and (step == start
+                                or (step + 1) % self.cfg.log_interval == 0):
                     now = time.perf_counter()
                     keys = [k for k, v in metrics.items() if v.ndim == 0]
                     values = torch.stack([metrics[k].float() for k in keys])
@@ -207,19 +216,20 @@ class Trainer:
                                **{f"epe_iter{i}": float(v)
                                   for i, v in enumerate(p["epe_per_iter"])}})
 
-                if (step + 1) % self.cfg.checkpoint_interval == 0:
+                if primary and (step + 1) % self.cfg.checkpoint_interval == 0:
                     save_checkpoint(ckpt_dir, self.model, self.optimizer,
                                     step + 1)
 
                 if eval_every and eval_fn and (step + 1) % eval_every == 0:
                     eval_metrics = eval_fn(self)
-                    self._log({"step": step + 1,
-                               **{f"eval/{k}": v
-                                  for k, v in eval_metrics.items()}})
+                    if primary:
+                        self._log({"step": step + 1,
+                                   **{f"eval/{k}": v
+                                      for k, v in eval_metrics.items()}})
         finally:
             if image_logger is not None:
                 image_logger.close()
-        if num_steps > start:
+        if primary and num_steps > start:
             # a final checkpoint makes short runs resumable
             save_checkpoint(ckpt_dir, self.model, self.optimizer, num_steps)
 

@@ -232,11 +232,31 @@ def test_jax_metric_on_port_poses_matches(runs, tree):
 
 
 def test_pose_graph_is_refused(runs):
+    """``evaluate_dataset`` no longer refuses ``pose_graph_metric``: with
+    it, the plain metric is the run's without it, and an image of one
+    object reaches the second metric with its plain poses (the pose
+    graph's parity with JAX is in test_torch_port_pose_graph.py)."""
+    from scflow_torch.metrics import ADDMetric
+    from scflow_torch.training import YCBV_CLASS_NAMES
     from scflow_torch.training.evaluate import evaluate_dataset
 
-    with pytest.raises(ValueError, match="pose-graph"):
-        evaluate_dataset(runs["trainer"], runs["builder"], runs["metric"],
-                         pose_graph_metric=runs["metric"])
+    def metric():
+        return ADDMetric(points_per_class=runs["mesh_points"],
+                         diameters=runs["metric"].diameters,
+                         class_names=YCBV_CLASS_NAMES)
+
+    plain, pg = metric(), metric()
+    got, results = evaluate_dataset(
+        runs["trainer"], runs["builder"], plain, slot_budget=BUDGET,
+        collect_results=True, progress_every=0, pose_graph_metric=pg)
+    assert got == runs["got"][0]
+    start = 0
+    for res in results:
+        n = len(res["labels"])
+        if n == 1:
+            assert pg._records[start] == plain._records[start]
+        start += len(runs["builder"][res["img_id"]]["gt_labels"])
+    assert pg.compute()["num_instances"] == got["num_instances"]
 
 
 def test_cli_runs_end_to_end(tree, tmp_path, capsys):
@@ -244,8 +264,8 @@ def test_cli_runs_end_to_end(tree, tmp_path, capsys):
     summary keys are printed; ``--save-dir`` writes the BOP file of the
     evaluated images; ``--format-only`` writes it and prints no table;
     ``--limit`` evaluates that many images; ``--passes 2`` refines twice;
-    ``--pose-graph`` is refused (``--config`` is run in
-    ``test_torch_port_traindata.py``)."""
+    ``--pose-graph`` prints the second table with each average's change
+    (``--config`` is run in ``test_torch_port_traindata.py``)."""
     from scflow_torch.test import main
 
     out, counts = tree
@@ -272,8 +292,13 @@ def test_cli_runs_end_to_end(tree, tmp_path, capsys):
     gap = max(np.abs(a["translations"] - b["translations"]).max()
               for a, b in zip(twice, only))
     assert gap > 0             # the second pass moved the poses further
-    with pytest.raises(SystemExit):
-        main(base + ["--pose-graph"])
+    capsys.readouterr()
+    pg, _ = main(base + ["--pose-graph"])
+    printed = capsys.readouterr().out
+    assert "== with scene pose-graph refinement ==" in printed
+    assert "average/add_0.10d: " in printed and "(Δ " in printed
+    assert pg["pose_graph"]["num_instances"] == counts["objects"]
+    assert {k: v for k, v in pg.items() if k != "pose_graph"} == metrics
 
 
 BLOCKED_RUN = """

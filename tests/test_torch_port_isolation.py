@@ -53,6 +53,8 @@ def test_no_jax_import_in_source(path):
 
 
 def test_entry_points_refuse_missing_gpu(monkeypatch, tmp_path):
+    from scflow_torch.graft_entry import dryrun_multichip, entry
+    from scflow_torch.parallel import initialize_distributed
     from scflow_torch.rendering import (Renderer, load_mesh_dir,
                                         make_test_meshes)
     from scflow_torch.test import main as test_main
@@ -105,6 +107,13 @@ def test_entry_points_refuse_missing_gpu(monkeypatch, tmp_path):
                                "--mesh-dir", str(tmp_path)]),
                  lambda: main(["--config", "scflow_ycbv_real", "--mesh-dir",
                                str(tmp_path)]),
+                 lambda: test_main(["--data-root", "d", "--ref-annots-root",
+                                    "r", "--image-list", "l", "--mesh-dir",
+                                    str(tmp_path), "--pose-graph"]),
+                 lambda: initialize_distributed(),
+                 lambda: initialize_distributed(num_processes=1),
+                 lambda: entry(),
+                 lambda: dryrun_multichip(1),
                  lambda: make_bop(["--out", str(tmp_path / "bop")])):
         with pytest.raises(RuntimeError, match="no CUDA GPU"):
             call()
