@@ -133,10 +133,32 @@ Phases (each prints one JSON line; any failed check raises):
           1e-4, the parameters within 2.5·(lr₀ + lr₁), launches per fit
           step K1 1, K2 30 and 30; ``graft_entry.entry()``'s forward and
           ``dryrun_multichip(1)`` (one spawned NCCL rank).
-Then the ``kernels`` line (K1, the K2 forward and backward in f32 and in
-bf16, each with its launches on every path), the card line from nvidia-smi
-and, last, ``{"ok": true, "device": {...}}``. Exits non-zero without a
-CUDA GPU.
+  options  every ModelConfig option past the shipped recipe, and the
+          renderer's depth/mask-only form: the K2 forward against its
+          plain version at the Small encoder's four IN shapes (batch 32,
+          f32); K1's no-attribute form against
+          its plain version bit for bit at batch 32 on the main path's
+          crops (256²) and on 480×640 frames of YCB-V's camera, device and
+          call time beside the bound; ``Renderer(render_image=False,
+          render_mask=True, soft_blending=True)`` at both sizes, 3 renders
+          each (launches: that form once per render, nothing else), 2
+          samples against the CPU; the tile kernel, binned and scan passes
+          on the same faces (face ids equal; scan within JAX's 1e-3 share
+          of edge tie-breaks) and one render with each, timed; the eval
+          step at batch 32 under option set A (separate encoders,
+          quaternion, linear depth not detached in x/y, masked flow and
+          correlation), the Small net and RAFT with the Small net
+          (bilinear upsampling, 12 iterations), 1 warm-up and 3 steps each
+          (K1 1, K2 30 / 32 / 32 per step), 2 samples against the CPU
+          (SCFlow poses to POSE_TOL, RAFT's flows and occlusions, and a
+          control: RAFT's flow with K2's output off by 1e-4 of itself must
+          fail that flow bound); the
+          train step at batch 16 under A with ``remat`` (1 warm-up, 2
+          steps, K1 1, K2 30 and 30), loss and gradient against the CPU.
+Then the ``kernels`` line (K1 and its no-attribute form, the K2 forward
+and backward in f32 and in bf16, each with its launches on every path),
+the card line from nvidia-smi and, last, ``{"ok": true, "device":
+{...}}``. Exits non-zero without a CUDA GPU.
 """
 from __future__ import annotations
 
@@ -208,6 +230,29 @@ PBR_LOADER_BATCHES = (2, 6)
 # the parameters are held to Adam's step bound (2.5 lr per element) and
 # their difference to 0.1 of the update's norm
 RESUME_LR_MULT, RESUME_UPDATE_RTOL = 2.5, 0.1
+# options: the ModelConfig options past the shipped recipe (set A), the
+# Small net, and the depth/mask-only render at the crop and at YCB-V's
+# frame and camera (BOP ycbv camera_uw.json)
+OPTIONS_A = dict(separate_encoder=True, rotation_mode="quaternion",
+                 depth_transform="linear", detach_depth_for_xy=False,
+                 mask_flow=True, mask_corr=True)
+OPTIONS_STEPS = 3
+# a Small encoder pass runs 16 instance norms (layer 1's first block
+# changes width, so it has a downsample), a step two passes
+SMALL_K2_PER_STEP = 32
+# the IN shapes (channels, side) of a Small feature-encoder pass at 256²:
+# the stem, then each stage's width
+SMALL_IN_SHAPES = ((32, 128), (8, 128), (16, 64), (24, 32))
+# the control of RAFT Small's flow bound: the card's flow with every IN
+# output scaled by 1 + this (10× K2's f32 tolerance) must fall outside it
+K2_CONTROL_REL = 1e-4
+FRAME = (480, 640)
+YCBV_K = ((1066.778, 0.0, 312.9869), (0.0, 1067.487, 241.3109),
+          (0.0, 0.0, 1.0))
+SIL_TOL = 1e-4            # soft silhouette, card vs CPU (the CPU tests')
+# scan vs tile face ids: the JAX package's own share of exact-edge
+# tie-breaks between its rasterizers (tests/test_render_modes.py)
+RASTER_MISMATCH = 1e-3
 
 
 def emit(**fields) -> None:
@@ -404,6 +449,29 @@ def _kernel_rows(name: str, replaces: str, totals: dict) -> list:
     return rows
 
 
+def k2_fwd_check(x, scale, bias, what: str) -> float:
+    """``instance_norm_fwd`` on ``x`` against its plain version: f32 within
+    1e-5 + 1e-5·|y| (statistics summed in another order), bf16 within 1e-5
+    plus one bf16 rounding step. Raises past it; returns the max abs
+    error."""
+    import torch
+
+    from scflow_torch.ops.fused_norm import (instance_norm_fwd,
+                                             instance_norm_reference)
+
+    y = instance_norm_fwd(x, scale, bias)
+    y_ref = instance_norm_reference(x, scale, bias)
+    torch.cuda.synchronize()
+    diff = (y.float() - y_ref.float()).abs()
+    err = diff.max().item()
+    if x.dtype == torch.float32:
+        ok = bool((diff <= 1e-5 + 1e-5 * y_ref.abs()).all())
+    else:
+        ok = bool((diff <= 1e-5 + bf16_ulp(y_ref)).all())
+    check(ok, f"{what} {x.dtype} {tuple(x.shape)}: max err {err}")
+    return err
+
+
 def phase_k2() -> list:
     """Rows for the f32 and the bf16 forward, per step (10 launches of
     each encoder shape at the eval batch)."""
@@ -421,16 +489,7 @@ def phase_k2() -> list:
         bias = (0.2 * torch.randn(c, generator=g)).cuda()
         for dtype in (torch.float32, torch.bfloat16):
             x = x32.to(dtype)
-            y = instance_norm_fwd(x, scale, bias)
-            y_ref = instance_norm_reference(x, scale, bias)
-            torch.cuda.synchronize()
-            diff = (y.float() - y_ref.float()).abs()
-            err = diff.max().item()
-            if dtype == torch.float32:     # statistics summed in another order
-                ok = bool((diff <= 1e-5 + 1e-5 * y_ref.abs()).all())
-            else:        # f32 statistics' spread, then one bf16 rounding step
-                ok = bool((diff <= 1e-5 + bf16_ulp(y_ref)).all())
-            check(ok, f"k2 {dtype} {tuple(x.shape)}: max err {err}")
+            err = k2_fwd_check(x, scale, bias, "k2")
             xs = cold_inputs(x)
             ms = device_ms(lambda: instance_norm_fwd(next(xs), scale, bias),
                            KERNEL_REPS)
@@ -464,6 +523,7 @@ def reset_counts() -> None:
     from scflow_torch.ops.rasterize_fast import rasterize_tiles
 
     rasterize_tiles.launches = 0
+    rasterize_tiles.bare_launches = 0
     instance_norm_fwd.launches = 0
     instance_norm_bwd.launches = 0
 
@@ -478,10 +538,11 @@ def counts() -> tuple[int, int, int]:
 
 
 def run_path(name: str, step, batch, steps: int, renders: int,
-             moves: bool = True) -> dict:
+             moves: bool = True, k2_per_render: int = 30) -> dict:
     """Drive one path ``steps`` times with the counts at 0 just before;
-    check K1 = renders and K2 = 30·renders launches per step, finite
-    outputs and (``moves``) a moved pose."""
+    check K1 = renders and K2 = ``k2_per_render``·renders launches per
+    step (30: two passes of a Basic feature encoder), finite outputs and
+    (``moves``) a moved pose."""
     import torch
 
     reset_counts()
@@ -496,8 +557,8 @@ def run_path(name: str, step, batch, steps: int, renders: int,
     check(k2b == 0, f"{name}: the K2 backward ran {k2b} times in inference")
     check(k1 == renders * steps, f"{name}: K1 launched {k1}, want "
           f"{renders * steps}")
-    check(k2 == 30 * renders * steps, f"{name}: K2 launched {k2}, want "
-          f"{30 * renders * steps}")
+    want_k2 = k2_per_render * renders * steps
+    check(k2 == want_k2, f"{name}: K2 launched {k2}, want {want_k2}")
     for key, v in out.items():
         check(bool(torch.isfinite(v).all()), f"{name}: {key} not finite")
     moved = (out["translations"] - batch["ref_translations"]).abs().max()
@@ -1398,6 +1459,382 @@ def phase_raft_train(bank) -> tuple:
     launches = out.pop("launches")
     emit(phase="raft_train", family="raft_flow_mask", **out)
     return launches
+
+
+def frame_poses(n: int, seed: int, size: tuple) -> tuple:
+    """``n`` objects anywhere in a ``size`` frame seen by YCB-V's camera,
+    700–1200 mm away: (rotations, translations, k, labels) on the CPU."""
+    import torch
+
+    from scflow_torch.geometry import quaternion_to_matrix
+
+    g = torch.Generator().manual_seed(seed)
+    labels = torch.randint(0, NUM_CLASS, (n,), generator=g)
+    rot = quaternion_to_matrix(torch.randn(n, 4, generator=g))
+    h, w = size
+    k = torch.tensor(YCBV_K).expand(n, 3, 3).contiguous()
+    z = torch.rand(n, generator=g) * 500 + 700
+    u = torch.rand(n, generator=g) * (w - 160) + 80
+    v = torch.rand(n, generator=g) * (h - 160) + 80
+    t = torch.stack([(u - k[:, 0, 2]) * z / k[:, 0, 0],
+                     (v - k[:, 1, 2]) * z / k[:, 1, 1], z], dim=-1)
+    return rot, t, k, labels
+
+
+def k1_bare(bank, poses: tuple, size: tuple) -> dict:
+    """K1's no-attribute form against its plain version on the faces of
+    ``poses`` at ``size``: face ids and z bit for bit; device and call
+    time, the plain version's, and the bound (each face's 14 coefficients
+    read once, 8 bytes written per pixel; 22 operations per filled
+    (pixel, slot) pair)."""
+    import torch
+
+    from scflow_torch.ops import rasterize_fast as rf
+    from scflow_torch.rendering import Renderer
+
+    h, w = size
+    renderer = Renderer(bank, image_size=size, render_image=False)
+    inp = renderer.rasterizer_inputs(*(x.cuda() for x in poses))
+    coeff, bbox, attr, d, k = rf.tile_inputs(
+        inp["tri_xy"], inp["tri_z"], inp["face_valid"], h, w, None)
+    check(attr is None and d == 0, "k1_bare: tile_inputs made attributes")
+    args = (coeff, bbox, None, h, w, 0, k)
+    got = rf.rasterize_tiles(*args)
+    want = rf.rasterize_tiles_reference(*args)
+    torch.cuda.synchronize()
+    bits = {name: torch.equal(a.view(torch.int32), b.view(torch.int32))
+            for name, a, b in zip(("face_id", "zbuf"), got, want)}
+    check(bool((want[0] >= 0).any()), "k1_bare: nothing rendered")
+    check(all(bits.values()) and got[2].numel() == 0,
+          f"k1_bare {size}: not bit-equal to the plain version {bits}")
+    err = (got[1] - want[1]).abs().max().item()
+    ms = device_ms(lambda: rf.rasterize_tiles(*args), KERNEL_REPS)
+    one = call_ms(lambda: rf.rasterize_tiles(*args), KERNEL_REPS)
+    plain = call_ms(lambda: rf.rasterize_tiles_reference(*args), 3, 1)
+    sel = rf._select_tiles(bbox.unbind(-1), coeff[..., 14] > 0, h, w, k)
+    pairs = (sel >= 0).sum().item() * rf.TILE * rf.TILE
+    faces = coeff.shape[0] * coeff.shape[1]
+    moved = faces * K1_COEFF_USED * 4 + sum(x.numel() * 4 for x in got[:2])
+    b_ms, b_by = bound_ms(moved, pairs * K1_OPS_PER_PAIR)
+    return dict(batch=coeff.shape[0], frame=list(size), faces=coeff.shape[1],
+                k=k, covered_share=(want[0] >= 0).float().mean().item(),
+                pixel_face_pairs=pairs, bit_equal=bits, max_abs_err=err,
+                ms=ms, call_ms=one, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, bytes=moved)
+
+
+def depth_rounding_scale(coeff, face_id):
+    """Per pixel, the f32 rounding scale s = u·Σₖ |ztₖ|(|aₖx| + |bₖy| +
+    |cₖ|) of evaluating the winning face's coefficient row (N, F, 16) at
+    the pixel, u = 2⁻²⁴ (``float64_witness`` of the CPU render tests): the
+    edge functions cancel terms far larger than the depth they give."""
+    import torch
+
+    n, h, w = face_id.shape
+    ys, xs = torch.meshgrid(
+        torch.arange(h, device=coeff.device, dtype=torch.float64),
+        torch.arange(w, device=coeff.device, dtype=torch.float64),
+        indexing="ij")
+    rows = torch.arange(n, device=coeff.device)[:, None, None]
+    row = coeff.double()[rows, face_id.clamp_min(0).long()]
+    scale = 0.0
+    for k in range(3):
+        a, b, c, zt = (row[..., 3 * k], row[..., 3 * k + 1],
+                       row[..., 3 * k + 2], row[..., 9 + k])
+        scale = scale + ((a * xs).abs() + (b * ys).abs() + c.abs()) * zt.abs()
+    return 2.0 ** -24 * scale
+
+
+def silhouette_path(bank, cpu_bank, poses: tuple, size: tuple,
+                    renders: int) -> dict:
+    """``Renderer(render_image=False, render_mask=True,
+    soft_blending=True)`` ``renders`` times with the counts at 0 just
+    before: one launch of K1's no-attribute form and nothing else per
+    render, no ``images``; the first 2 samples against the CPU (masks
+    exact, depth within 1e-3 + 2·s of ``depth_rounding_scale``, the CPU
+    render tests' bound; soft alpha within SIL_TOL)."""
+    import torch
+
+    from scflow_torch.ops import rasterize_fast as rf
+    from scflow_torch.ops.rasterize_fast import rasterize_tiles
+    from scflow_torch.rendering import Renderer
+
+    opts = dict(image_size=size, render_image=False, render_mask=True,
+                soft_blending=True)
+    renderer = Renderer(bank, **opts)
+    args = tuple(x.cuda() for x in poses)
+    with torch.inference_mode():
+        reset_counts()
+        times = []
+        for _ in range(renders):
+            t0 = time.perf_counter()
+            out = renderer(*args)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        launches = (*counts(), rasterize_tiles.bare_launches)
+        check(launches == (renders, 0, 0, renders),
+              f"silhouette {size}: launches K1/K2/K2 bwd/K1 bare {launches}")
+        check(set(out) == {"depth", "mask", "masks"},
+              f"silhouette: outputs {sorted(out)}")
+        alpha = out["masks"]
+        check(bool(((alpha >= 0.5) == out["mask"]).all()
+                   and (alpha <= 1).all()), "silhouette: alpha outside its range")
+        cpu = Renderer(cpu_bank, **opts)(*(x[:2] for x in poses))
+        inp = renderer.rasterizer_inputs(*(x[:2] for x in args))
+        faces = (inp["tri_xy"], inp["tri_z"], inp["face_valid"])
+        face_id = rf.rasterize_fast(*faces, *size,
+                                    return_bary=False)["face_id"]
+        scale = depth_rounding_scale(rf._coeff_table(*faces)[0], face_id)
+    err = {key: (out[key][:2].cpu().float() - cpu[key].float()).abs().max().item()
+           for key in ("depth", "masks")}
+    check(torch.equal(out["mask"][:2].cpu(), cpu["mask"]),
+          f"silhouette {size}: masks differ from the CPU's")
+    depth_gap = (out["depth"][:2].cpu() - cpu["depth"]).abs()
+    err["depth_over_scale"] = (depth_gap / (1e-3 + 2.0 * scale.cpu())
+                               ).max().item()
+    check(err["depth_over_scale"] <= 1.0 and err["masks"] <= SIL_TOL,
+          f"silhouette {size}: card vs CPU {err}")
+    return dict(frame=list(size), batch=args[0].shape[0], renders=renders,
+                render_ms=[1e3 * t for t in times],
+                covered_share=out["mask"].float().mean().item(),
+                launches_per_render={"rasterize_tiles[no_attrs]": 1},
+                cpu_max_abs_err=err, launches=launches)
+
+
+def rasterizers_agree(bank, batch) -> dict:
+    """The tile kernel, the binned and the scan pass on the same projected
+    faces at the main path's batch: face ids of the tile kernel and the
+    binned pass equal, the scan's within JAX's own share of exact-edge
+    tie-breaks (RASTER_MISMATCH); one render with each, timed."""
+    import torch
+
+    from scflow_torch.ops.rasterize_fast import rasterize_fast
+    from scflow_torch.rendering import Renderer
+    from scflow_torch.rendering.rasterizer import (project_vertices,
+                                                   rasterize, rasterize_binned)
+
+    h, w = SIZE
+    args = (batch["ref_rotations"], batch["ref_translations"], batch["k"],
+            batch["labels"].long())
+    with torch.inference_mode():
+        inp = Renderer(bank, image_size=SIZE).rasterizer_inputs(*args)
+        valid, faces = inp["face_valid"], inp["faces"]
+        xy, z = project_vertices(inp["verts"], *args[:3])
+        rows = torch.arange(xy.shape[0], device=xy.device)[:, None, None]
+        ids = {"pallas": rasterize_fast(xy[rows, faces], z[rows, faces],
+                                        valid, h, w,
+                                        return_bary=False)["face_id"],
+               "binned": rasterize_binned(xy, z, faces, valid, h, w,
+                                          return_bary=False)["face_id"],
+               "scan": rasterize(xy, z, faces, valid, h, w)["face_id"]}
+        torch.cuda.synchronize()
+        render_ms = {kind: call_ms(lambda kind=kind: Renderer(
+            bank, image_size=SIZE, rasterizer=kind)(*args), 3, 1)
+            for kind in ids}
+    differ = {kind: (ids[kind] != ids["pallas"]).float().mean().item()
+              for kind in ("binned", "scan")}
+    check(bool((ids["pallas"] >= 0).any()) and differ["binned"] == 0.0
+          and differ["scan"] <= RASTER_MISMATCH,
+          f"rasterizers: face-id mismatch shares {differ}")
+    return dict(batch=xy.shape[0], frame=list(SIZE),
+                face_id_mismatch_share=differ,
+                scan_bound=RASTER_MISMATCH, render_ms=render_ms)
+
+
+def k2_small() -> dict:
+    """The K2 forward at the Small encoder's IN shapes, at the eval batch
+    in f32 (the Small paths' type), against its plain version."""
+    import torch
+
+    g = torch.Generator().manual_seed(3)
+    errs = {}
+    for c, side in SMALL_IN_SHAPES:
+        x = (torch.randn(BATCH, c, side, side, generator=g) * 2 + 0.5).cuda()
+        scale = (1 + 0.3 * torch.randn(c, generator=g)).cuda()
+        bias = (0.2 * torch.randn(c, generator=g)).cuda()
+        errs[f"{BATCH}x{c}x{side}x{side}"] = k2_fwd_check(x, scale, bias,
+                                                          "k2 small")
+    return errs
+
+
+def k2_control(model, rendered, real, cpu_flow, spread: float) -> dict:
+    """The RAFT flow bound's control: the card's flow with every IN output
+    off by K2_CONTROL_REL of itself (each IN's affine scaled; the model is
+    not used again) must fail the bound the real run passed."""
+    import torch
+
+    from scflow_torch.models.layers import FusedInstanceNorm
+
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, FusedInstanceNorm):
+                m.weight.mul_(1 + K2_CONTROL_REL)
+                m.bias.mul_(1 + K2_CONTROL_REL)
+    with torch.inference_mode():
+        flows, _ = model(rendered, real)
+    diff = (flows[-1].cpu() - cpu_flow).abs()
+    err = diff.max().item()
+    passes = (bool((diff <= RAFT_FLOW_TOL["atol"] + RAFT_FLOW_TOL["rtol"]
+                    * cpu_flow.abs()).all()) or err <= 5 * spread)
+    check(not passes, f"control: a K2 off by {K2_CONTROL_REL} of its output "
+          f"passes the flow bound (err {err}, CPU spread {spread})")
+    return dict(k2_output_rel_err=K2_CONTROL_REL, flow_max_abs_err=err)
+
+
+def options_eval(name: str, model_kw: dict, renderer, cpu_renderer, batch,
+                 k2_per_step: int) -> dict:
+    """The eval step at the main path's width under ``model_kw``: 1
+    warm-up and OPTIONS_STEPS steps with the counts at 0 just before (K1 1,
+    K2 ``k2_per_step``); 2 samples against the CPU port: SCFlow poses to
+    POSE_TOL; RAFT's network flows and occlusions (its PnP is chaotic on
+    random weights, see the raft phase) to the raft phase's bounds, or the
+    flow within 5× the CPU's own spread under a 1e-6 relative change of
+    the rendered images (the Small net's flow is ~12× as sensitive as the
+    Basic net's: 4.4e-3 against 3.5e-4 px after 12 iterations); then
+    :func:`k2_control` shows that bound fails a wrong K2."""
+    import torch
+
+    from scflow_torch.training import (Config, ModelConfig, RenderConfig,
+                                       build_model, device_normalize_images,
+                                       make_eval_step, render_at_pose)
+
+    cfg = Config(model=ModelConfig(**{"num_class": NUM_CLASS, "iters": ITERS,
+                                      "test_iters": ITERS, **model_kw}),
+                 render=RenderConfig(image_size=SIZE))
+    raft = cfg.model.family != "scflow"
+    model = build_model(cfg, device="cuda", seed=0)
+    step = make_eval_step(model, renderer, cfg, device="cuda")
+    run_path(f"{name}_warmup", step, batch, 1, 1, moves=not raft,
+             k2_per_render=k2_per_step)
+    run = run_path(name, step, batch, OPTIONS_STEPS, 1, moves=not raft,
+                   k2_per_render=k2_per_step)
+    cpu_model = build_model(cfg, device="cpu", seed=0)
+    small = {k: v[:2] for k, v in batch.items()}
+    t0 = time.perf_counter()
+    if raft:
+        with torch.inference_mode():
+            rendered, _, _ = render_at_pose(
+                renderer, small["ref_rotations"], small["ref_translations"],
+                small["k"], small["labels"].long(), cfg.data.normalize_mean,
+                cfg.data.normalize_std)
+            real = device_normalize_images(small["real_images"], cfg)
+            flows, occ = model(rendered, real)
+            cpu_flows, cpu_occ = cpu_model(rendered.cpu(), real.cpu())
+            nudged, _ = cpu_model(rendered.cpu() * (1 + 1e-6), real.cpu())
+        spread = (nudged[-1] - cpu_flows[-1]).abs().max().item()
+        err = {}
+        for key, got, want, tol in (("flow", flows[-1], cpu_flows[-1],
+                                     RAFT_FLOW_TOL),
+                                    ("masks", occ[-1], cpu_occ[-1],
+                                     RAFT_OCC_TOL)):
+            diff = (got.cpu() - want).abs()
+            err[key] = diff.max().item()
+            ok = bool((diff <= tol["atol"] + tol["rtol"] * want.abs()).all())
+            if key == "flow":
+                ok = ok or err[key] <= 5 * spread
+            check(ok, f"{name} cpu parity: {key} err {err[key]} (CPU "
+                      f"spread {spread})")
+        control = k2_control(model, rendered, real, cpu_flows[-1], spread)
+        parity = dict(max_abs_err=err, flow_tol=RAFT_FLOW_TOL,
+                      occlusion_tol=RAFT_OCC_TOL, cpu_flow_spread=spread,
+                      flow_bound=f"flow_tol or 5 x cpu_flow_spread",
+                      control=control)
+    else:
+        cpu_out = make_eval_step(cpu_model, cpu_renderer, cfg, device="cpu")(
+            {k: v.cpu() for k, v in small.items()})
+        gpu = {k: run["out"][k][:2].cpu() for k in ("rotations",
+                                                    "translations")}
+        rot_err = (gpu["rotations"] - cpu_out["rotations"]).abs().max().item()
+        t_diff = (gpu["translations"] - cpu_out["translations"]).abs()
+        t_allow = (POSE_TOL["trans_atol"]
+                   + POSE_TOL["trans_rtol"] * cpu_out["translations"].abs())
+        check(rot_err <= POSE_TOL["rot_atol"]
+              and bool((t_diff <= t_allow).all()),
+              f"{name} cpu parity: rotation {rot_err}, translation "
+              f"{t_diff.max().item()}")
+        parity = dict(rotation_max_abs_err=rot_err,
+                      translation_max_abs_err=t_diff.max().item(), **POSE_TOL)
+    step_ms = 1e3 * statistics.median(run["times"])
+    return dict(options=model_kw, step_ms_median=step_ms,
+                step_ms=[1e3 * t for t in run["times"]],
+                frames_per_s=BATCH / (step_ms / 1e3),
+                launches_per_step={"rasterize_tiles": run["k1"] // OPTIONS_STEPS,
+                                   "instance_norm_fwd":
+                                       run["k2"] // OPTIONS_STEPS},
+                cpu_parity=dict(samples=2, cpu_seconds=time.perf_counter() - t0,
+                                **parity),
+                launches=(run["k1"], run["k2"], 0))
+
+
+def phase_options(bank, renderer, batch) -> tuple:
+    """Every ModelConfig option and the renderer's depth/mask-only form on
+    the card (see the module doc). Returns (each path's launches of K1
+    either form, the K2 forward and backward; the no-attribute K1 row of
+    the kernels line with its launches by path)."""
+    import torch
+
+    from scflow_torch.rendering import Renderer, make_test_meshes
+    from scflow_torch.training import (Config, DataConfig, ModelConfig,
+                                       RenderConfig, build_points_bank)
+
+    t_phase = time.perf_counter()
+    small_k2 = k2_small()
+    cpu_bank = make_test_meshes(NUM_CLASS, subdivisions=3, radius=60.0,
+                                device="cpu")
+    cpu_renderer = Renderer(cpu_bank, image_size=SIZE)
+    main_poses = (batch["ref_rotations"].cpu(), batch["ref_translations"].cpu(),
+                  batch["k"].cpu(), batch["labels"].long().cpu())
+    frame_p = frame_poses(BATCH, 5, FRAME)
+    with torch.inference_mode():
+        bare = {"crop": k1_bare(bank, main_poses, SIZE),
+                "frame": k1_bare(bank, frame_p, FRAME)}
+    sil = {"crop": silhouette_path(bank, cpu_bank, main_poses, SIZE, 3),
+           "frame": silhouette_path(bank, cpu_bank, frame_p, FRAME, 3)}
+    agree = rasterizers_agree(bank, batch)
+    evals = {name: options_eval(name, kw, renderer, cpu_renderer, batch, k2)
+             for name, kw, k2 in (
+                 ("options_a", OPTIONS_A, 30),
+                 ("small", dict(net_type="Small"), SMALL_K2_PER_STEP),
+                 ("raft_small", dict(family="raft_flow_mask",
+                                     net_type="Small", iters=RAFT_ITERS,
+                                     test_iters=RAFT_ITERS),
+                  SMALL_K2_PER_STEP))}
+    cfg = Config(model=ModelConfig(num_class=NUM_CLASS, iters=ITERS,
+                                   test_iters=ITERS, remat=True, **OPTIONS_A),
+                 render=RenderConfig(image_size=SIZE),
+                 data=DataConfig(batch_size=TRAIN_BATCH))
+    points = build_points_bank(bank, symmetric_classes=range(0, NUM_CLASS, 2),
+                               num_points=cfg.loss.num_loss_points)
+    train, run = drive_train("options_train", cfg, bank, points, 1, 2)
+    train["cpu_parity"] = train_parity(cfg, run["renderer"], points,
+                                       run["batch"])
+    train_launches = train.pop("launches")
+    del run
+    emit(phase="options", k2_small_max_abs_err=small_k2,
+         card_k1_no_attrs=bare, silhouette={
+        k: {f: v for f, v in s.items() if f != "launches"}
+        for k, s in sil.items()},
+         rasterizers=agree,
+         eval={k: {f: v for f, v in e.items() if f != "launches"}
+               for k, e in evals.items()},
+         train=dict(options=dict(OPTIONS_A, remat=True), **train),
+         phase_seconds=time.perf_counter() - t_phase)
+    paths = {name: e["launches"] for name, e in evals.items()}
+    paths["options_train"] = train_launches
+    for key, s in sil.items():
+        k1, k2, k2b, k1_no_attrs = s["launches"]
+        paths[f"silhouette_{key}"] = (k1 - k1_no_attrs, k2, k2b)
+    crop = bare["crop"]
+    row = dict(name="rasterize_tiles[no_attrs]", route="cuda",
+               source="scflow_torch/ops/csrc/rasterize.cu",
+               replaces="scflow_tpu/ops/rasterize_fast.py:122",
+               max_abs_err=crop["max_abs_err"], ms=crop["ms"],
+               call_ms=crop["call_ms"], plain_ms=crop["plain_ms"],
+               bound_ms=crop["bound_ms"], bound_by=crop["bound_by"],
+               library_ms=None, launches=sil["crop"]["launches"][3],
+               launches_by_path={f"silhouette_{k}": s["launches"][3]
+                                 for k, s in sil.items()})
+    return paths, row
 
 
 def phase_sync(step, batch, bank) -> dict:
@@ -2572,6 +3009,7 @@ def main() -> int:
     train_bop = phase_train_bop(train_ms, smi)
     train_pbr = phase_train_pbr(train_ms, smi)
     parallel = phase_parallel(bank)
+    options, bare_row = phase_options(bank, renderer, batch)
     emit(phase="done", seconds_total=time.perf_counter() - t_start)
 
     # ``launches``: the row's own path (f32 or bf16); beside it every
@@ -2581,7 +3019,8 @@ def main() -> int:
              "train": train, "trainer": trainer, "train_bf16": train_bf16,
              "raft_train": raft_train, "eval_bop": (*eval_bop, 0),
              "train_bop": train_bop, "train_pbr": train_pbr,
-             "pose_graph": (*pose_graph, 0), "parallel": parallel}
+             "pose_graph": (*pose_graph, 0), "parallel": parallel,
+             **options}
 
     def by_path(i, names):
         return {p: paths[p][i] for p in names}
@@ -2589,15 +3028,16 @@ def main() -> int:
     k1_row.update(launches=main_run["k1"], launches_by_path=by_path(0, paths))
     fwd_rows[0].update(launches=main_run["k2"], launches_by_path=by_path(
         1, ("main", "raft", "train", "trainer", "raft_train", "eval_bop",
-            "train_bop", "train_pbr", "pose_graph", "parallel")))
+            "train_bop", "train_pbr", "pose_graph", "parallel", "options_a",
+            "small", "raft_small", "options_train")))
     fwd_rows[1].update(launches=bf16[1], launches_by_path=by_path(
         1, ("bf16", "train_bf16")))
     bwd_rows[0].update(launches=train[2], launches_by_path=by_path(
         2, ("train", "trainer", "raft_train", "train_bop", "train_pbr",
-            "parallel")))
+            "parallel", "options_train")))
     bwd_rows[1].update(launches=train_bf16[2],
                        launches_by_path=by_path(2, ("train_bf16",)))
-    rows = [k1_row, *fwd_rows, *bwd_rows]
+    rows = [k1_row, bare_row, *fwd_rows, *bwd_rows]
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -8,8 +8,13 @@ pose-induced flow at feature resolution, computed from 4-tap "effective
 points", and rebuilds the full-resolution outputs of the last iteration
 only; ``lowres=False`` carries the flow at image resolution, as training
 runs it. Under autograd each iteration detaches the carried flow and mask
-and the source pose, and the depth update reaches x and y detached, as
-the JAX ``_SCFlowIteration`` does with all detach flags on.
+and the source pose, as the JAX ``_SCFlowIteration`` does with its detach
+flags on; the options of the JAX decoder (``net_type``,
+``rotation_mode``, ``depth_transform``, ``detach_depth_for_xy``,
+``mask_flow``, ``mask_corr``, ``remat``) keep their names and defaults.
+``remat`` recomputes each iteration in the backward pass
+(``torch.utils.checkpoint``, non-reentrant) instead of keeping its
+activations.
 
 With a compute ``dtype`` (bf16) the pyramid levels are stored in it and
 the GRU state, the motion encoder, the GRU, the heads' hidden convs, the
@@ -17,7 +22,8 @@ embeddings and the pose head's convs and FC layers compute in it; the
 delta flow, the mask, the pose and all geometry stay f32.
 
 ``RAFTDecoder`` is the plain RAFT loop of the flow(→PnP) family (port of
-``scflow_tpu/models/decoder.py:265-370``), in f32.
+``scflow_tpu/models/decoder.py:265-370``), in f32: convex upsampling with
+the Basic net, bilinear with the others.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..geometry.flow import flow_from_pose_and_points
 from ..geometry.projection import (depth_to_correspondences, pixel_grid,
@@ -36,6 +43,8 @@ from .gru import ConvGRU
 from .heads import FlowMaskEmbed, MotionEncoder, PoseHead, XHead
 from .layers import downsample_flow, resize_bilinear_align_corners, upsample_flow
 
+DEPTH_TRANSFORMS = ("exp", "linear")
+
 
 @dataclasses.dataclass
 class SCFlowOutputs:
@@ -45,7 +54,7 @@ class SCFlowOutputs:
     rotations: torch.Tensor           # (T, N, 3, 3)
     translations: torch.Tensor        # (T, N, 3)
     masks: torch.Tensor               # (T, N, H, W, 1)
-    delta_rotations: torch.Tensor     # (T, N, 6)
+    delta_rotations: torch.Tensor     # (T, N, 6 ortho6d | 4 quaternion)
     delta_translations: torch.Tensor  # (T, N, 3)
 
 
@@ -58,21 +67,32 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 
 
 class SCFlowDecoder(nn.Module):
-    """Shape-constrained recurrent decoder as the shipped SCFlow recipe runs
-    it: Basic net, ortho6d rotations, exp depth transform, all detach flags
-    on, unmasked correlation and flow, invalid flow 0, zero initial flow.
+    """Shape-constrained recurrent decoder. The defaults are the shipped
+    SCFlow recipe's: Basic net, ortho6d rotations, exp depth transform,
+    depth detached in the x/y update, unmasked correlation and flow.
     ``feat_hw`` is the feature-map size; ``dtype`` the compute dtype."""
 
     def __init__(self, feat_hw: tuple[int, int], num_levels: int = 4,
                  radius: int = 4, iters: int = 8, num_class: int = 21,
                  h_channels: int = 128, cxt_channels: int = 128,
-                 dtype: torch.dtype | None = None):
+                 dtype: torch.dtype | None = None, net_type: str = "Basic",
+                 rotation_mode: str = "ortho6d", depth_transform: str = "exp",
+                 detach_depth_for_xy: bool = True, mask_flow: bool = False,
+                 mask_corr: bool = False, remat: bool = False):
         super().__init__()
+        if depth_transform not in DEPTH_TRANSFORMS:
+            raise ValueError(f"unknown depth_transform {depth_transform!r}")
         self.num_levels = num_levels
         self.radius = radius
         self.iters = iters
         self.compute_dtype = dtype
-        self.encoder = MotionEncoder(num_levels * (2 * radius + 1) ** 2, dtype)
+        self.depth_transform = depth_transform
+        self.detach_depth_for_xy = detach_depth_for_xy
+        self.mask_flow = mask_flow
+        self.mask_corr = mask_corr
+        self.remat = remat
+        self.encoder = MotionEncoder(num_levels * (2 * radius + 1) ** 2, dtype,
+                                     net_type)
         self.gru = ConvGRU(h_channels, cxt_channels + self.encoder.out_channels,
                            dtype)
         self.flow_pred = XHead(h_channels, (256,), 2, "flow", dtype)
@@ -80,14 +100,65 @@ class SCFlowDecoder(nn.Module):
         self.delta_flow_encoder = FlowMaskEmbed(2, (128, 64), (7, 3), dtype)
         self.mask_encoder = FlowMaskEmbed(1, (64, 32), (3, 3), dtype)
         self.pose_pred = PoseHead(h_channels + 64 + 32, feat_hw, num_class,
-                                  dtype=dtype)
+                                  rotation_mode, dtype=dtype)
+
+    def _iteration(self, h_feat, flow, mask, rot, trans, pyramid, cxt_feat,
+                   label, k, geom, scale: int, invalid_flow_num: float,
+                   lowres: bool):
+        """One GRU + delta-pose update (the JAX ``_SCFlowIteration``):
+        returns the new carry (h_feat, flow, mask, rot, trans) and this
+        iteration's outputs in the order of :class:`SCFlowOutputs` (at
+        ``lowres``: no pose flow or mask, the flow at feature size)."""
+        flow, mask = flow.detach(), mask.detach()
+        if lowres:
+            flow_small = flow
+        else:
+            h_img, w_img = flow.shape[-2:]
+            flow_small = downsample_flow(flow, scale)
+        corr = corr_lookup(pyramid, flow_small, self.radius)
+        if self.mask_corr:
+            corr = corr * mask
+        motion = self.encoder(corr,
+                              flow_small * mask if self.mask_flow
+                              else flow_small)
+        h_feat = self.gru(h_feat, torch.cat([cxt_feat, motion], dim=1))
+        delta_flow = self.flow_pred(h_feat)
+        mask = torch.sigmoid(self.mask_pred(h_feat))
+        dflow_feat = self.delta_flow_encoder(delta_flow)
+        drot, dtrans = self.pose_pred(
+            torch.cat([h_feat.to(dflow_feat.dtype), dflow_feat,
+                       self.mask_encoder(mask)], dim=1), label)
+        rot, trans = compose_delta_pose(
+            drot, dtrans, rot.detach(), trans.detach(),
+            depth_transform=self.depth_transform,
+            detach_depth_for_xy=self.detach_depth_for_xy)
+        flow_pred = flow_small + delta_flow
+        if lowres:
+            p_eff, w_eff, x_eff = geom
+            n, _, hf, wf = w_eff.shape
+            proj, _ = project_points(p_eff, k, rot, trans)
+            proj = _nchw(proj.reshape(n, hf, wf, 2))
+            flow = (w_eff * proj - x_eff) / scale
+            return (h_feat, flow, mask, rot, trans), (
+                None, flow_pred, rot, trans, None, drot, dtrans)
+        points_3d, valid = geom
+        pose_flow = flow_from_pose_and_points(
+            rot, trans, k, points_3d, valid, invalid_num=invalid_flow_num)
+        outs = (pose_flow, _nhwc(upsample_flow(flow_pred, scale)), rot, trans,
+                _nhwc(resize_bilinear_align_corners(mask, (h_img, w_img))),
+                drot, dtrans)
+        return (h_feat, _nchw(pose_flow), mask, rot, trans), outs
 
     def forward(self, feat_render, feat_real, h_feat, cxt_feat, ref_rotation,
-                ref_translation, depth, k, label, iters: int | None = None,
+                ref_translation, depth, k, label,
+                init_flow: torch.Tensor | None = None,
+                invalid_flow_num: float = 0.0, iters: int | None = None,
                 lowres: bool = False) -> SCFlowOutputs:
         """feat_render/feat_real (N, C, hf, wf), h_feat/cxt_feat
         (N, 128, hf, wf); ref pose (N, 3, 3)/(N, 3); depth (N, H, W);
-        k (N, 3, 3); label (N,)."""
+        k (N, 3, 3); label (N,); init_flow (N, H, W, 2) in the JAX layout
+        (default zeros; ``lowres`` starts from zeros, as in JAX);
+        ``invalid_flow_num`` the pose flow of pixels without depth."""
         n, h_img, w_img = depth.shape
         hf, wf = feat_render.shape[-2:]
         scale = h_img // hf
@@ -108,55 +179,35 @@ class SCFlowDecoder(nn.Module):
             p_eff = _nhwc(p_w / w_eff.clamp_min(1e-12)).reshape(n, hf * wf, 3)
             grid = _nchw(pixel_grid(h_img, w_img, torch.float32, dev)[None])
             x_eff = resize_bilinear_align_corners(grid * vf, (hf, wf))
+            geom = (p_eff, w_eff, x_eff)
             flow = torch.zeros(n, 2, hf, wf, device=dev)
         else:
-            flow = torch.zeros(n, 2, h_img, w_img, device=dev)
-        mask = torch.ones(n, 1, hf, wf, device=dev)
-        rot, trans = ref_rotation, ref_translation
+            geom = (points_3d, valid)
+            flow = (torch.zeros(n, 2, h_img, w_img, device=dev)
+                    if init_flow is None else _nchw(init_flow))
+        carry = (h_feat, flow, torch.ones(n, 1, hf, wf, device=dev),
+                 ref_rotation, ref_translation)
+        step = self._iteration
+        if self.remat and torch.is_grad_enabled():
+            def step(*args):
+                return checkpoint(self._iteration, *args, use_reentrant=False)
 
-        seq = {f.name: [] for f in dataclasses.fields(SCFlowOutputs)}
+        seq = [[] for _ in dataclasses.fields(SCFlowOutputs)]
         for _ in range(num_iters):
-            flow, mask = flow.detach(), mask.detach()
-            flow_small = flow if lowres else downsample_flow(flow, scale)
-            corr = corr_lookup(pyramid, flow_small, self.radius)
-            motion = self.encoder(corr, flow_small)
-            h_feat = self.gru(h_feat, torch.cat([cxt_feat, motion], dim=1))
-            delta_flow = self.flow_pred(h_feat)
-            mask = torch.sigmoid(self.mask_pred(h_feat))
-            dflow_feat = self.delta_flow_encoder(delta_flow)
-            drot, dtrans = self.pose_pred(
-                torch.cat([h_feat.to(dflow_feat.dtype), dflow_feat,
-                           self.mask_encoder(mask)], dim=1), label)
-            rot, trans = compose_delta_pose(
-                drot, dtrans, rot.detach(), trans.detach(),
-                depth_transform="exp", detach_depth_for_xy=True)
-            if lowres:
-                proj, _ = project_points(p_eff, k, rot, trans)
-                proj = _nchw(proj.reshape(n, hf, wf, 2))
-                flow = (w_eff * proj - x_eff) / scale
-            else:
-                pose_flow = flow_from_pose_and_points(
-                    rot, trans, k, points_3d, valid, invalid_num=0.0)
-                seq["flow_from_pose"].append(pose_flow)
-                seq["flow_from_pred"].append(_nhwc(
-                    upsample_flow(flow_small + delta_flow, scale)))
-                seq["masks"].append(_nhwc(
-                    resize_bilinear_align_corners(mask, (h_img, w_img))))
-                flow = _nchw(pose_flow)
-            seq["rotations"].append(rot)
-            seq["translations"].append(trans)
-            seq["delta_rotations"].append(drot)
-            seq["delta_translations"].append(dtrans)
-
+            carry, outs = step(*carry, pyramid, cxt_feat, label, k, geom,
+                               scale, invalid_flow_num, lowres)
+            for acc, o in zip(seq, outs):
+                acc.append(o)
         if lowres:
             # full-resolution outputs for the final iteration only
-            seq["flow_from_pose"] = [flow_from_pose_and_points(
-                rot, trans, k, points_3d, valid, invalid_num=0.0)]
-            seq["flow_from_pred"] = [_nhwc(
-                upsample_flow(flow_small + delta_flow, scale))]
-            seq["masks"] = [_nhwc(
-                resize_bilinear_align_corners(mask, (h_img, w_img)))]
-        return SCFlowOutputs(**{k_: torch.stack(v) for k_, v in seq.items()})
+            _, _, mask, rot, trans = carry
+            seq[0] = [flow_from_pose_and_points(
+                rot, trans, k, points_3d, valid,
+                invalid_num=invalid_flow_num)]
+            seq[1] = [_nhwc(upsample_flow(seq[1][-1], scale))]
+            seq[4] = [_nhwc(resize_bilinear_align_corners(mask,
+                                                          (h_img, w_img)))]
+        return SCFlowOutputs(*(torch.stack(v) for v in seq))
 
 
 def convex_upsample(x: torch.Tensor, weights: torch.Tensor, scale: int,
@@ -178,30 +229,37 @@ def convex_upsample(x: torch.Tensor, weights: torch.Tensor, scale: int,
 
 
 class RAFTDecoder(nn.Module):
-    """Plain RAFT decoder with convex upsampling and, with
-    ``predict_mask``, a per-iteration occlusion head upsampled with the
-    same convex weights (the JAX ``RAFTDecoder`` with the Basic net). Each
-    iteration detaches the carried flow; the GRU state is not detached."""
+    """Plain RAFT decoder with, with ``predict_mask``, a per-iteration
+    occlusion head (the JAX ``RAFTDecoder``). The Basic net upsamples flow
+    and occlusion with learned convex weights (``mask_pred``); other nets
+    have no weight head and upsample bilinearly (align corners, the flow
+    scaled by the factor). Each iteration detaches the carried flow; the
+    GRU state is not detached."""
 
     def __init__(self, num_levels: int = 4, radius: int = 4, iters: int = 12,
                  predict_mask: bool = False, h_channels: int = 128,
-                 cxt_channels: int = 128, upsample_factor: int = 8):
+                 cxt_channels: int = 128, upsample_factor: int = 8,
+                 net_type: str = "Basic"):
         super().__init__()
         self.num_levels = num_levels
         self.radius = radius
         self.iters = iters
         self.scale = upsample_factor
-        self.encoder = MotionEncoder(num_levels * (2 * radius + 1) ** 2)
+        self.encoder = MotionEncoder(num_levels * (2 * radius + 1) ** 2,
+                                     net_type=net_type)
         self.gru = ConvGRU(h_channels, cxt_channels + self.encoder.out_channels)
         self.flow_pred = XHead(h_channels, (256,), 2, "flow")
         # convex-upsample weights: 9·scale² channels (reference ``mask_pred``)
-        self.mask_pred = XHead(h_channels, (256,), 9 * self.scale ** 2, "mask")
+        self.mask_pred = (XHead(h_channels, (256,), 9 * self.scale ** 2, "mask")
+                          if net_type == "Basic" else None)
         self.occlusion_pred = (XHead(h_channels, (256,), 1, "mask")
                                if predict_mask else None)
 
     def forward(self, feat1, feat2, h_feat, cxt_feat,
+                init_flow: torch.Tensor | None = None,
                 iters: int | None = None):
-        """feat1/feat2 (N, C, hf, wf), h_feat/cxt_feat (N, 128, hf, wf).
+        """feat1/feat2 (N, C, hf, wf), h_feat/cxt_feat (N, 128, hf, wf),
+        init_flow (N, hf, wf, 2) in the JAX layout (default zeros).
         Returns (flows (T, N, H, W, 2), occlusions (T, N, H, W, 1)) at
         image resolution in the JAX layout; occlusions are zeros without
         the occlusion head, as in the JAX package."""
@@ -209,7 +267,8 @@ class RAFTDecoder(nn.Module):
         s = self.scale
         num_iters = self.iters if iters is None else iters
         pyramid = correlation_pyramid(feat1, feat2, self.num_levels)
-        flow = torch.zeros(n, 2, hf, wf, device=feat1.device)
+        flow = (torch.zeros(n, 2, hf, wf, device=feat1.device)
+                if init_flow is None else _nchw(init_flow))
         flows, occs = [], []
         for _ in range(num_iters):
             flow = flow.detach()
@@ -217,11 +276,19 @@ class RAFTDecoder(nn.Module):
             motion = self.encoder(corr, flow)
             h_feat = self.gru(h_feat, torch.cat([cxt_feat, motion], dim=1))
             flow = flow + self.flow_pred(h_feat)
-            up_weights = 0.25 * self.mask_pred(h_feat)
-            flows.append(_nhwc(convex_upsample(flow, up_weights, s)))
+            up_weights = None
+            if self.mask_pred is not None:
+                up_weights = 0.25 * self.mask_pred(h_feat)
+                flows.append(_nhwc(convex_upsample(flow, up_weights, s)))
+            else:
+                flows.append(_nhwc(upsample_flow(flow, s)))
             if self.occlusion_pred is None:
                 occs.append(flows[-1].new_zeros(n, hf * s, wf * s, 1))
-            else:
-                occ = torch.sigmoid(self.occlusion_pred(h_feat))
+                continue
+            occ = torch.sigmoid(self.occlusion_pred(h_feat))
+            if up_weights is not None:
                 occs.append(_nhwc(convex_upsample(occ, up_weights, s, 1.0)))
+            else:
+                occs.append(_nhwc(resize_bilinear_align_corners(
+                    occ, (hf * s, wf * s))))
         return torch.stack(flows), torch.stack(occs)

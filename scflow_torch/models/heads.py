@@ -12,17 +12,25 @@ from torch import nn
 
 from .layers import ConvBlock, Linear, conv2d
 
-# Basic net: (corr channels, corr kernels, flow channels, flow kernels, out)
-_MOTION = ((256, 192), (1, 3), (128, 64), (7, 3), 126)
+# net_type: (corr channels, corr kernels, flow channels, flow kernels, out)
+MOTION = {
+    "Basic": ((256, 192), (1, 3), (128, 64), (7, 3), 126),
+    "Large": ((256, 192), (1, 3), (128, 64), (7, 3), 126),
+    "Small": ((96,), (1,), (64, 32), (7, 3), 80),
+}
 
 
 class MotionEncoder(nn.Module):
-    """corr + flow → motion features; the output ends with the raw flow
-    (cast to the compute dtype, as both inputs are)."""
+    """corr + flow → motion features at the widths of ``net_type``; the
+    output ends with the raw flow (cast to the compute dtype, as both
+    inputs are)."""
 
-    def __init__(self, corr_channels: int, dtype: torch.dtype | None = None):
+    def __init__(self, corr_channels: int, dtype: torch.dtype | None = None,
+                 net_type: str = "Basic"):
         super().__init__()
-        corr_ch, corr_k, flow_ch, flow_k, out_ch = _MOTION
+        if net_type not in MOTION:
+            raise ValueError(f"unknown net_type {net_type!r}")
+        corr_ch, corr_k, flow_ch, flow_k, out_ch = MOTION[net_type]
         self.compute_dtype = dtype
         self.corr_net = nn.Sequential(*[
             ConvBlock(cin, ch, kk, dtype=dtype) for cin, ch, kk in
@@ -78,30 +86,42 @@ class FlowMaskEmbed(nn.Sequential):
         return super().forward(x)
 
 
-ROT_DIM = 6      # ortho6d rotations
+# the identity rotation of each rotation mode; its length is the pose
+# head's rotation outputs per class
+_IDENTITY = {"ortho6d": [1.0, 0.0, 0.0, 0.0, 1.0, 0.0],
+             "quaternion": [0.0, 0.0, 0.0, 1.0]}
+ROT_DIM = {mode: len(v) for mode, v in _IDENTITY.items()}
 
 
-def identity_rotation_bias(num_class: int = 1) -> torch.Tensor:
-    """Pose-head rotation bias that predicts the identity (ortho6d) for
-    every class."""
-    return torch.tensor([1.0, 0.0, 0.0, 0.0, 1.0, 0.0] * num_class)
+def identity_rotation_bias(rotation_mode: str = "ortho6d",
+                           num_class: int = 1) -> torch.Tensor:
+    """Pose-head rotation bias that predicts the identity rotation for
+    every class: ortho6d (1, 0, 0, 0, 1, 0) or quaternion xyzw (0, 0, 0, 1)."""
+    if rotation_mode not in _IDENTITY:
+        raise ValueError(f"unsupported rotation mode {rotation_mode!r}")
+    return torch.tensor(_IDENTITY[rotation_mode] * num_class)
 
 
 class PoseHead(nn.Module):
     """Delta-pose regression: three stride-2 GN+ReLU convs, two FC layers
-    on the NCHW flatten (all in the compute dtype), then float32 ortho6d
-    rotation/translation linears; with ``num_class > 1`` the ``label`` row
-    of the per-class outputs is kept.
+    on the NCHW flatten (all in the compute dtype), then float32
+    rotation/translation linears (6 ortho6d or 4 quaternion rotation
+    outputs per class, ``rotation_mode``); with ``num_class > 1`` the
+    ``label`` row of the per-class outputs is kept.
 
     ``in_hw`` is the feature map size, which fixes the first FC's width."""
 
     def __init__(self, in_channels: int, in_hw: tuple[int, int],
-                 num_class: int = 1,
+                 num_class: int = 1, rotation_mode: str = "ortho6d",
                  conv_channels: Sequence[int] = (128, 128, 128),
                  fc_channels: Sequence[int] = (1024, 256),
                  dtype: torch.dtype | None = None):
         super().__init__()
+        if rotation_mode not in ROT_DIM:
+            raise ValueError(f"unsupported rotation mode {rotation_mode!r}")
         self.num_class = num_class
+        self.rotation_mode = rotation_mode
+        self.rot_dim = ROT_DIM[rotation_mode]
         chans = (in_channels, *conv_channels)
         self.conv_layers = nn.ModuleList([
             ConvBlock(a, b, 3, stride=2, norm="gn", dtype=dtype)
@@ -113,7 +133,7 @@ class PoseHead(nn.Module):
         self.fc_layers = nn.ModuleList([
             nn.Sequential(Linear(a, b, dtype), nn.ReLU())
             for a, b in zip(fcs, fcs[1:])])
-        self.rotation_pred = nn.Linear(fcs[-1], ROT_DIM * num_class)
+        self.rotation_pred = nn.Linear(fcs[-1], self.rot_dim * num_class)
         self.translation_pred = nn.Linear(fcs[-1], 3 * num_class)
 
     def forward(self, x: torch.Tensor, label: torch.Tensor):
@@ -127,6 +147,6 @@ class PoseHead(nn.Module):
         trans = self.translation_pred(x)
         if self.num_class > 1:
             rows = torch.arange(x.shape[0], device=x.device)
-            rot = rot.reshape(-1, self.num_class, ROT_DIM)[rows, label]
+            rot = rot.reshape(-1, self.num_class, self.rot_dim)[rows, label]
             trans = trans.reshape(-1, self.num_class, 3)[rows, label]
         return rot, trans

@@ -7,7 +7,9 @@ per 32×32 pixel tile, the first ``K`` faces of the 8-face chunks whose
 bounding boxes overlap the tile (:func:`_select_tiles`), runs for every
 pixel and selected face the edge functions, the inside test, the
 interpolated z and a packed (z | face id) key whose minimum is the z-test,
-and writes the winner's face id, z and attributes in image layout.
+and writes the winner's face id, z and attributes in image layout. Without
+attributes (``tri_attrs=None``: depth or mask renders) it writes face ids
+and z alone, as the TPU kernel's ``d_attr=0`` form does.
 
 On a CUDA tensor the tile pass is the hand-written kernel in
 ``csrc/rasterize.cu``, selection and decode included; on a CPU tensor it
@@ -98,7 +100,8 @@ def _select_tiles(bbox, ok: torch.Tensor, height: int, width: int,
 
 def _check_inputs(coeff, bbox, attr, height, width, d_attr, k_faces):
     """Raise unless the tile pass's inputs have the shapes, types and
-    layout that :func:`rasterize_tiles` takes."""
+    layout that :func:`rasterize_tiles` takes (``attr`` None with
+    ``d_attr`` 0: no attributes)."""
     if coeff.dim() != 3:
         raise ValueError(f"coeff must be (N, F, 16), got {tuple(coeff.shape)}")
     n, f = coeff.shape[:2]
@@ -110,9 +113,13 @@ def _check_inputs(coeff, bbox, attr, height, width, d_attr, k_faces):
     if not 0 < f < (1 << ID_BITS) or f % CHUNK:
         raise ValueError(f"{f} faces: not a multiple of {CHUNK} below "
                          f"2^{ID_BITS} (the packed id)")
-    if not 0 < d_attr <= ATTR_PAD:
+    if attr is None:
+        if d_attr != 0:
+            raise ValueError(f"d_attr {d_attr} without an attribute table")
+    elif not 0 < d_attr <= ATTR_PAD:
         raise ValueError(f"d_attr {d_attr} outside (0, {ATTR_PAD}]")
-    for x, width_ in ((coeff, 16), (bbox, 4), (attr, 3 * ATTR_PAD)):
+    tables = ((coeff, 16), (bbox, 4), (attr, 3 * ATTR_PAD))
+    for x, width_ in tables[:2] if attr is None else tables:
         if (x.device != coeff.device or x.dtype != torch.float32
                 or tuple(x.shape) != (n, f, width_) or not x.is_contiguous()
                 or x.data_ptr() % 16):
@@ -122,16 +129,18 @@ def _check_inputs(coeff, bbox, attr, height, width, d_attr, k_faces):
 
 
 def rasterize_tiles_reference(coeff: torch.Tensor, bbox: torch.Tensor,
-                              attr: torch.Tensor, height: int, width: int,
-                              d_attr: int, k_faces: int = K_FACES):
+                              attr: torch.Tensor | None, height: int,
+                              width: int, d_attr: int,
+                              k_faces: int = K_FACES):
     """Plain PyTorch tile pass: :func:`_select_tiles`, the TPU kernel's
     (P, K) formulation, then the decode.
 
     coeff (N, F, 16) from :func:`_coeff_table`; bbox (N, F, 4) its
     [xmin, xmax, ymin, ymax]; attr (N, F, 3·16) vertex attributes
     premultiplied by 1/|area|, of which the first ``d_attr`` channels are
-    read. Returns face_id (N, H, W) int32 (-1 where no face covers), zbuf
-    (N, H, W) f32 and attrs (N, H, W, d_attr) f32 (0 where no face covers).
+    read, or None with ``d_attr`` 0 (no attributes). Returns face_id
+    (N, H, W) int32 (-1 where no face covers), zbuf (N, H, W) f32 and attrs
+    (N, H, W, d_attr) f32 (0 where no face covers; empty when d_attr is 0).
     The winner's z and attributes are gathered from its slot and blended
     as (w0·v0 + w1·v1) + w2·v2, the kernel's order. Tiles go through in
     chunks, so the dense (tiles, 1024, K) temporaries stay bounded.
@@ -180,6 +189,8 @@ def rasterize_tiles_reference(coeff: torch.Tensor, bbox: torch.Tensor,
         win = kk.argmin(dim=-1, keepdim=True)                    # (B, P, 1)
         key[sl] = kk.gather(-1, win)[..., 0]
         zbuf[sl] = zi.gather(-1, win)[..., 0]
+        if attr is None:
+            continue
         ws = [w.gather(-1, win) for w in (w0, w1, w2)]           # (B, P, 1)
         a = torch.where(filled, attr[b_n, idx.clamp_min(0)], 0.0)
         a = a[torch.arange(a.shape[0], device=dev)[:, None], win[..., 0]]
@@ -212,9 +223,10 @@ def _kernel_entry():
 
 
 def rasterize_tiles(coeff: torch.Tensor, bbox: torch.Tensor,
-                    attr: torch.Tensor, height: int, width: int, d_attr: int,
-                    k_faces: int = K_FACES):
-    """Tile pass: the CUDA kernel on CUDA tensors, the plain version
+                    attr: torch.Tensor | None, height: int, width: int,
+                    d_attr: int, k_faces: int = K_FACES):
+    """Tile pass: the CUDA kernel on CUDA tensors (its no-attribute
+    instantiation when ``attr`` is None), the plain version
     (:func:`rasterize_tiles_reference`) on CPU tensors. Same contract."""
     if coeff.device.type == "cpu":
         return rasterize_tiles_reference(coeff, bbox, attr, height, width,
@@ -229,25 +241,30 @@ def rasterize_tiles(coeff: torch.Tensor, bbox: torch.Tensor,
     attrs = torch.empty(n, height, width, d_attr, dtype=torch.float32,
                         device=dev)
     err = _kernel_entry()(
-        coeff.data_ptr(), bbox.data_ptr(), attr.data_ptr(),
+        coeff.data_ptr(), bbox.data_ptr(),
+        None if attr is None else attr.data_ptr(),
         face_id.data_ptr(), zbuf.data_ptr(), attrs.data_ptr(),
         n, f, k_faces, height, width, d_attr,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "rasterize_tiles")
     rasterize_tiles.launches += 1
+    if attr is None:
+        rasterize_tiles.bare_launches += 1
     return face_id, zbuf, attrs
 
 
+# launches of either instantiation, and of the no-attribute one alone
 rasterize_tiles.launches = 0
+rasterize_tiles.bare_launches = 0
 
 
 def tile_inputs(tri_xy: torch.Tensor, tri_z: torch.Tensor,
                 face_valid: torch.Tensor, height: int, width: int,
-                tri_attrs: torch.Tensor, k_faces: int = K_FACES):
+                tri_attrs: torch.Tensor | None, k_faces: int = K_FACES):
     """The tile pass's inputs for a batch of projected meshes: coeff
-    (N, F', 16), bbox (N, F', 4), attr rows (N, F', 48), d_attr and the
-    face budget K = min(k_faces, F'), with the faces padded to F' = a
-    multiple of 8."""
+    (N, F', 16), bbox (N, F', 4), attr rows (N, F', 48) (None without
+    ``tri_attrs``), d_attr (0 without) and the face budget
+    K = min(k_faces, F'), with the faces padded to F' = a multiple of 8."""
     if height % TILE or width % TILE:
         raise ValueError(f"frame {height}x{width} is not a multiple of {TILE}")
     n, f0 = face_valid.shape
@@ -256,37 +273,74 @@ def tile_inputs(tri_xy: torch.Tensor, tri_z: torch.Tensor,
         face_valid = torch.cat([face_valid, face_valid.new_zeros(n, pad)], 1)
         tri_xy = torch.cat([tri_xy, tri_xy.new_zeros(n, pad, 3, 2)], 1)
         tri_z = torch.cat([tri_z, tri_z.new_zeros(n, pad, 3)], 1)
-        tri_attrs = torch.cat(
-            [tri_attrs, tri_attrs.new_zeros((n, pad) + tri_attrs.shape[2:])], 1)
+        if tri_attrs is not None:
+            tri_attrs = torch.cat([tri_attrs, tri_attrs.new_zeros(
+                (n, pad) + tri_attrs.shape[2:])], 1)
     fcount = f0 + pad
     if fcount >= (1 << ID_BITS):
         raise ValueError("face budget exceeds the packed id bits")
     k_faces = min(k_faces, max(CHUNK, (fcount // CHUNK) * CHUNK))
 
     coeff, bbox, _ = _coeff_table(tri_xy, tri_z, face_valid)
+    bbox = torch.stack(bbox, dim=-1)
+    if tri_attrs is None:
+        return coeff.contiguous(), bbox, None, 0, k_faces
     d_attr = tri_attrs.shape[-1]
     if not 0 < d_attr <= ATTR_PAD:
         raise ValueError(f"{d_attr} attribute channels outside (0, {ATTR_PAD}]")
     attr_p = tri_attrs * coeff[..., 12, None, None]              # premultiplied
     attr_p = torch.nn.functional.pad(attr_p, (0, ATTR_PAD - d_attr))
     attr_rows = attr_p.reshape(n, fcount, 3 * ATTR_PAD).contiguous()
-    return (coeff.contiguous(), torch.stack(bbox, dim=-1), attr_rows, d_attr,
-            k_faces)
+    return coeff.contiguous(), bbox, attr_rows, d_attr, k_faces
+
+
+def winner_barycentrics(tri_xy: torch.Tensor,
+                        face_id: torch.Tensor) -> torch.Tensor:
+    """Screen-space barycentrics (N, H, W, 3) of the winning face at each
+    pixel (x, y) from tri_xy (N, F, 3, 2) and face_id (N, H, W): the edge
+    functions over the signed area, 1/area taken as 0 for a degenerate
+    face, 0 on background (the JAX package's ``return_bary`` tail)."""
+    n, h, w = face_id.shape
+    bg = face_id < 0
+    rows = torch.arange(n, device=face_id.device)[:, None, None]
+    tri = tri_xy[rows, face_id.clamp_min(0).long()]           # (N, H, W, 3, 2)
+    py, px = torch.meshgrid(
+        torch.arange(h, dtype=tri.dtype, device=tri.device),
+        torch.arange(w, dtype=tri.dtype, device=tri.device), indexing="ij")
+    ax, ay = tri[..., 0, 0], tri[..., 0, 1]
+    bx, by = tri[..., 1, 0], tri[..., 1, 1]
+    cx, cy = tri[..., 2, 0], tri[..., 2, 1]
+    area = (bx - ax) * (cy - ay) - (by - ay) * (cx - ax)
+    inv_area = torch.where(area.abs() > 1e-12, 1.0 / area, 0.0)
+    e0 = (cx - bx) * (py - by) - (cy - by) * (px - bx)
+    e1 = (ax - cx) * (py - cy) - (ay - cy) * (px - cx)
+    e2 = (bx - ax) * (py - ay) - (by - ay) * (px - ax)
+    bary = torch.stack([e0, e1, e2], dim=-1) * inv_area[..., None]
+    return torch.where(bg[..., None], 0.0, bary)
 
 
 def rasterize_fast(tri_xy: torch.Tensor, tri_z: torch.Tensor,
                    face_valid: torch.Tensor, height: int, width: int,
-                   tri_attrs: torch.Tensor, k_faces: int = K_FACES) -> dict:
+                   tri_attrs: torch.Tensor | None = None,
+                   k_faces: int = K_FACES, return_bary: bool = True) -> dict:
     """Tile-binned rasterization of a batch of projected meshes.
 
     tri_xy (N, F, 3, 2) pixel coordinates and tri_z (N, F, 3) camera depth
     of each face's vertices; face_valid (N, F); tri_attrs (N, F, 3, D≤16)
     per-face-vertex attributes, interpolated with the winner's barycentric
-    weights. Returns dict(zbuf (N, H, W), face_id (N, H, W) int32, -1 for
-    background, attrs (N, H, W, D)).
+    weights, or None (the kernel's no-attribute form). Returns dict(zbuf
+    (N, H, W), face_id (N, H, W) int32, -1 for background[, attrs
+    (N, H, W, D) with ``tri_attrs``][, bary (N, H, W, 3) with
+    ``return_bary``, from :func:`winner_barycentrics`]), the keys of the
+    JAX package's ``rasterize_fast``.
     """
     coeff, bbox, attr, d_attr, k = tile_inputs(
         tri_xy, tri_z, face_valid, height, width, tri_attrs, k_faces)
     face_id, zbuf, attrs = rasterize_tiles(coeff, bbox, attr, height, width,
                                            d_attr, k)
-    return {"zbuf": zbuf, "face_id": face_id, "attrs": attrs}
+    out = {"zbuf": zbuf, "face_id": face_id}
+    if tri_attrs is not None:
+        out["attrs"] = attrs
+    if return_bary:
+        out["bary"] = winner_barycentrics(tri_xy, face_id)
+    return out

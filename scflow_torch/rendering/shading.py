@@ -1,6 +1,7 @@
 """Phong shading with point lights (port of
-``scflow_tpu/rendering/shading.py:21-89``): pytorch3d's HardPhongShader
-formula, two-sided normals, clamp to [0, 1] at the end."""
+``scflow_tpu/rendering/shading.py``): pytorch3d's HardPhongShader
+formula, two-sided normals, clamp to [0, 1] at the end; and the
+SoftSilhouetteShader's alpha from the z-test winner."""
 from __future__ import annotations
 
 import dataclasses
@@ -67,3 +68,43 @@ def phong_shade(points_obj: torch.Tensor, normals_obj: torch.Tensor,
     bg = torch.as_tensor(background_color, dtype=color.dtype,
                          device=color.device)
     return torch.where(mask[..., None], color, bg).clamp(0.0, 1.0)
+
+
+def silhouette_alpha(face_id: torch.Tensor, tri_xy: torch.Tensor,
+                     image_size: tuple, sigma: float = 1e-4,
+                     soft: bool = True) -> torch.Tensor:
+    """Silhouette coverage from rasterizer fragments (port of
+    ``scflow_tpu/rendering/shading.py:92-137``): pytorch3d's
+    SoftSilhouetteShader with one face per pixel and no blur, which is
+    ``sigmoid(d² / sigma)`` on covered pixels and 0 elsewhere, d² the
+    squared distance of the pixel centre (x + 0.5, y + 0.5) to the nearest
+    edge of the z-test winner, in NDC units (2 / min(H, W) per pixel).
+
+    face_id (N, H, W), -1 for background; tri_xy (N, F, 3, 2) per-face
+    projected vertex pixel coordinates; ``soft=False`` returns the hard
+    coverage as float. Returns (N, H, W) float32 alpha in [0, 1].
+    """
+    covered = face_id >= 0
+    if not soft:
+        return covered.to(torch.float32)
+    h, w = image_size
+    ys, xs = torch.meshgrid(
+        torch.arange(h, device=face_id.device),
+        torch.arange(w, device=face_id.device), indexing="ij")
+    p = torch.stack([xs + 0.5, ys + 0.5], dim=-1).to(torch.float32)
+    rows = torch.arange(face_id.shape[0], device=face_id.device)[:, None, None]
+    tri = tri_xy[rows, face_id.clamp_min(0).long()]              # (N,H,W,3,2)
+
+    d2_min = torch.full(face_id.shape, torch.inf, dtype=torch.float32,
+                        device=face_id.device)
+    for e in range(3):
+        a, b = tri[..., e, :], tri[..., (e + 1) % 3, :]
+        ab = b - a
+        t = (((p - a) * ab).sum(-1)
+             / (ab * ab).sum(-1).clamp_min(1e-12)).clamp(0.0, 1.0)
+        proj = a + t[..., None] * ab
+        d2_min = torch.minimum(d2_min, ((p - proj) ** 2).sum(-1))
+
+    ndc_per_pix = 2.0 / min(h, w)
+    alpha = torch.sigmoid(d2_min * (ndc_per_pix * ndc_per_pix) / sigma)
+    return torch.where(covered, alpha, 0.0)

@@ -105,6 +105,12 @@ def load_torch_checkpoint(path: str, model: nn.Module) -> dict:
     The file is unpickled in full, as an mmengine checkpoint's metadata
     needs: load only files from a source you trust.
 
+    A model with ``separate_encoder`` reads the reference's
+    ``seperate_encoder=True`` layout: its ``real_encoder`` takes the
+    checkpoint's ``real_encoder.*`` tensors, or a copy of the render
+    encoder's where the checkpoint has none (a shared-encoder checkpoint),
+    as the JAX converter's ``separate_encoder=True`` does.
+
     Returns the report ``{"covered", "missing", "unused"}`` of tensor
     names: ``missing`` tensors of the model keep their values (a reference
     instance norm without affine parameters leaves the port's at 1 and 0,
@@ -113,6 +119,11 @@ def load_torch_checkpoint(path: str, model: nn.Module) -> dict:
     """
     ckpt = normalize_torch_state(
         torch.load(path, map_location="cpu", weights_only=False))
+    if getattr(model, "separate_encoder", False) and not any(
+            k.startswith("real_encoder.") for k in ckpt):
+        ckpt.update({"real_encoder" + k[len("render_encoder"):]: v
+                     for k, v in list(ckpt.items())
+                     if k.startswith("render_encoder.")})
     own = model.state_dict()
     unused = sorted(k for k in ckpt if k not in own)
     if unused:

@@ -1,15 +1,22 @@
-"""Configuration dataclasses for the port's inference and training paths
-(the fields of ``scflow_tpu/training/config.py`` that these paths read,
-with the same names and defaults), and the YCB-V constants. The model is
-the SCFlow family or the RAFT flow(+occlusion) family with a shared feature
-encoder and Basic net; SCFlow with ortho6d rotations and exp depth
-transform, in float32 or bfloat16. Fields with other values come with the
-slices that run them.
+"""Configuration dataclasses of the port (the fields of
+``scflow_tpu/training/config.py``, with the same names and defaults), and
+the YCB-V constants. Every field of the JAX ``ModelConfig`` is here and
+runs: both model families, the three ``net_type`` widths, separate or
+shared feature encoders, ortho6d or quaternion rotations, exp or linear
+depth updates, masked flow and correlation, ``remat``, float32 or
+bfloat16. ``RenderConfig`` has JAX's fields, but as in JAX only
+``image_size`` is read: the CLIs and ``build_model``'s callers build
+``Renderer(bank, image_size=...)``, so ``background_color``,
+``separate_lights`` and ``light_offset`` parse and change nothing (the
+``Renderer`` takes all three as its own options).
 
-One deliberate difference: ``DataConfig`` has no ``use_native`` /
-``native_crop``. The port's eval crop has the semantics of the JAX
-package's C++ crop (``data.pipeline.crop_resize_pad_batch``), its train
-crop those of its cv2 crop (``data.pipeline.crop_resize_pad``)."""
+What the port does not take: ``DataConfig.use_native`` / ``native_crop``.
+The port's eval crop has the semantics of the JAX package's C++ crop
+(``data.pipeline.crop_resize_pad_batch``), its train crop those of its cv2
+crop (``data.pipeline.crop_resize_pad``). ``build_model`` refuses, with a
+``ValueError`` naming the field, a RAFT model with ``net_type="Large"``:
+its stride-4 features through the decoder's ×8 upsampling give flows at
+twice the frame, which no step of either package can use."""
 from __future__ import annotations
 
 import dataclasses
@@ -19,6 +26,9 @@ import dataclasses
 class ModelConfig:
     family: str = "scflow"            # 'scflow' | 'raft_flow' | 'raft_flow_mask'
     num_class: int = 21
+    # a second IN encoder for the real images (else shared with the render's)
+    separate_encoder: bool = False
+    net_type: str = "Basic"           # 'Basic' | 'Small' | 'Large' widths
     feat_channels: int = 256
     h_channels: int = 128
     cxt_channels: int = 128
@@ -26,6 +36,15 @@ class ModelConfig:
     radius: int = 4
     iters: int = 8
     test_iters: int = 8
+    rotation_mode: str = "ortho6d"    # 'ortho6d' | 'quaternion'
+    depth_transform: str = "exp"      # 'exp' | 'linear'
+    # the depth update reaches the x/y update detached
+    detach_depth_for_xy: bool = True
+    # multiply the motion encoder's flow / the correlation by the mask
+    mask_flow: bool = False
+    mask_corr: bool = False
+    # recompute each decoder iteration in the backward pass
+    remat: bool = False
     max_flow: float = 400.0
     filter_invalid_flow: bool = True
     # compute dtype of the SCFlow conv/matmul stack: 'float32' | 'bfloat16'
@@ -78,6 +97,9 @@ class JitterConfig:
 @dataclasses.dataclass
 class RenderConfig:
     image_size: tuple = (256, 256)
+    background_color: tuple = (0.5, 0.5, 0.5)
+    separate_lights: bool = True
+    light_offset: float = 400.0
 
 
 @dataclasses.dataclass

@@ -38,7 +38,9 @@ from ..device import resolve_device
 from ..geometry.flow import filter_flow_by_mask, flow_from_pose_and_depth
 from ..losses import sequence_flow_loss, sequence_mask_loss, sequence_pose_loss
 from ..models.flow_pose import solve_pose_from_flow
-from ..models.heads import identity_rotation_bias
+from ..models.decoder import DEPTH_TRANSFORMS
+from ..models.encoder import ARCH
+from ..models.heads import ROT_DIM, identity_rotation_bias
 from ..models.layers import FusedInstanceNorm
 from ..models.refiner import RAFTRefiner, SCFlowRefiner
 from ..parallel.collect import all_reduce_grads_, reduce_metrics
@@ -74,7 +76,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
         if isinstance(model, SCFlowRefiner):
             head = model.decoder.pose_pred
             head.rotation_pred.bias.copy_(
-                identity_rotation_bias(head.num_class))
+                identity_rotation_bias(head.rotation_mode, head.num_class))
 
 
 _DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
@@ -86,29 +88,48 @@ def build_model(cfg: Config, device: str | torch.device = "cuda",
     ``cfg.model.dtype``) or ``RAFTRefiner`` ('raft_flow', and
     'raft_flow_mask' with the occlusion head; float32 whatever the dtype,
     as in the JAX package), initialised from ``seed`` with a
-    ``torch.Generator`` on the CPU, on ``device`` in eval mode. Real
-    weights come in through ``weights.load_jax_variables`` or
+    ``torch.Generator`` on the CPU, on ``device`` in eval mode. Every
+    ``ModelConfig`` field goes through as the JAX ``build_model`` passes
+    it; a value neither package runs raises ``ValueError`` naming the
+    field. Real weights come in through ``weights.load_jax_variables`` or
     ``load_state_dict``."""
     dev = resolve_device(device)
     m = cfg.model
-    if m.dtype not in _DTYPES:
-        raise ValueError(f"unknown dtype {m.dtype!r}")
+    for field, value, allowed in (
+            ("dtype", m.dtype, tuple(_DTYPES)),
+            ("family", m.family, ("scflow", "raft_flow", "raft_flow_mask")),
+            ("net_type", m.net_type, tuple(ARCH)),
+            ("rotation_mode", m.rotation_mode, tuple(ROT_DIM)),
+            ("depth_transform", m.depth_transform, DEPTH_TRANSFORMS)):
+        if value not in allowed:
+            raise ValueError(f"ModelConfig.{field}: unknown value {value!r} "
+                             f"(one of {allowed})")
+    if m.family != "scflow" and m.net_type == "Large":
+        # RAFT's decoder upsamples by 8: flows of a stride-4 encoder would
+        # come out at twice the frame (the JAX model's do, and its steps
+        # then fail on the shapes)
+        raise ValueError("ModelConfig.net_type: 'Large' (stride 4) does not "
+                         f"fit the RAFT decoder's ×8 upsampling ({m.family})")
     with torch.device("meta"):
         if m.family in ("raft_flow", "raft_flow_mask"):
             model = RAFTRefiner(
+                separate_encoder=m.separate_encoder,
                 h_channels=m.h_channels, cxt_channels=m.cxt_channels,
-                feat_channels=m.feat_channels, num_levels=m.num_levels,
-                radius=m.radius, iters=m.iters,
-                predict_mask=m.family == "raft_flow_mask")
-        elif m.family == "scflow":
-            model = SCFlowRefiner(
-                num_class=m.num_class, h_channels=m.h_channels,
-                cxt_channels=m.cxt_channels, feat_channels=m.feat_channels,
+                feat_channels=m.feat_channels, net_type=m.net_type,
                 num_levels=m.num_levels, radius=m.radius, iters=m.iters,
+                predict_mask=m.family == "raft_flow_mask")
+        else:
+            model = SCFlowRefiner(
+                num_class=m.num_class, separate_encoder=m.separate_encoder,
+                h_channels=m.h_channels, cxt_channels=m.cxt_channels,
+                feat_channels=m.feat_channels, net_type=m.net_type,
+                num_levels=m.num_levels, radius=m.radius, iters=m.iters,
+                rotation_mode=m.rotation_mode,
+                depth_transform=m.depth_transform,
+                detach_depth_for_xy=m.detach_depth_for_xy,
+                mask_flow=m.mask_flow, mask_corr=m.mask_corr, remat=m.remat,
                 image_size=tuple(cfg.render.image_size),
                 dtype=_DTYPES[m.dtype])
-        else:
-            raise ValueError(f"unknown model family {m.family!r}")
     model.to_empty(device="cpu")
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(dev).eval()

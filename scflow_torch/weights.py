@@ -8,9 +8,11 @@ checkpoint converter. Conv kernels go HWIO → OIHW, dense kernels are
 transposed, the pose head's first FC input goes from the flax HWC flatten
 to the torch CHW flatten, and BN ``mean``/``var`` become
 ``running_mean``/``running_var``. In a ``RAFTRefiner`` ``decoder.mask_pred``
-is the convex-upsample weight head (flax ``up_mask_head``) and
-``decoder.occlusion_pred`` the occlusion head (``occ_head``); it has no
-pose head.
+is the convex-upsample weight head (flax ``up_mask_head``, Basic net only)
+and ``decoder.occlusion_pred`` the occlusion head (``occ_head``); it has
+no pose head. A ``separate_encoder`` model's ``real_encoder`` is the flax
+``real_encoder``; the widths of every ``net_type`` and the 4-row
+quaternion pose head map as they are.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ from torch import nn
 from .models.layers import FusedInstanceNorm
 from .models.refiner import RAFTRefiner
 
-_ENC = r"(render_encoder|context)"
+_ENC = r"(render_encoder|real_encoder|context)"
 _IT = "decoder/iteration"
 _RULES = [(re.compile(p), r) for p, r in (
     (rf"{_ENC}\.conv1", r"\1/stem/conv"),

@@ -6,6 +6,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 # f32 parity: no TF32 in convolutions or matmuls where a card is present
@@ -118,3 +119,14 @@ def random_rotations(rng: np.random.Generator, n: int) -> np.ndarray:
     ], axis=-1)
     return m.reshape(n, 3, 3).astype(np.float32)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU work of a module on one intra-op thread (autouse where
+    a test module imports it): beside the other test workers, a thread
+    pool's parallel regions wait on descheduled threads (the options and
+    render-mode files took 5-150× their time alone)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)

@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from port_common import IMAGE, NUM_CLASS, jax_refiner_variables, nchw
+from port_common import one_torch_thread  # noqa: F401 (autouse)
 from scflow_torch.models import corr as tcorr
 from scflow_torch.models import layers as tlayers
 from scflow_tpu.models import corr as jcorr

@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from port_common import perturb
+from port_common import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 NUM_CLASS = 3

@@ -141,7 +141,7 @@ def scene_inputs(dev, n=8, classes=5, subdivisions=3, size=256, seed=0,
     ``shift`` moves them sideways (mm), ``big_face`` turns face 0 of every
     sample into a triangle behind them that covers the whole frame, and
     ``d_attr`` channels of the Phong attributes (repeated past 9) are
-    interpolated."""
+    interpolated (0: none, the kernel's no-attribute form)."""
     g = torch.Generator().manual_seed(seed)
     q = torch.nn.functional.normalize(torch.randn(n, 4, generator=g), dim=-1)
     from scflow_torch.geometry import quaternion_to_matrix
@@ -164,7 +164,8 @@ def scene_inputs(dev, n=8, classes=5, subdivisions=3, size=256, seed=0,
                                      [-2.0 * size, 4.0 * size]])
         tri_z[:, 0] = 2000.0
         valid[:, 0] = True
-    tri_attrs = torch.cat([inp["tri_attrs"]] * 2, dim=-1)[..., :d_attr]
+    tri_attrs = (torch.cat([inp["tri_attrs"]] * 2, dim=-1)[..., :d_attr]
+                 if d_attr else None)
     coeff, bbox, attr, d, k_faces = rf.tile_inputs(
         tri_xy, tri_z, valid, size, size, tri_attrs, k_faces)
     return coeff, bbox, attr, size, size, d, k_faces
@@ -204,6 +205,47 @@ def test_rasterize_kernel_attribute_widths(dev, d_attr):
     got, want = rasterize_both(scene_inputs(dev, d_attr=d_attr))
     assert want[2].shape[-1] == d_attr and (want[0] >= 0).any()
     assert_bit_equal(got, want)
+
+
+@pytest.mark.parametrize("n,size,big_face", [
+    (8, 256, False), (32, 256, False), (2, 256, True)],
+    ids=["batch8", "batch32", "frame-filling-face"])
+def test_rasterize_kernel_without_attributes(dev, n, size, big_face):
+    """The no-attribute instantiation: face ids and z bit-equal to the
+    plain version and to the attribute form's, no attribute output."""
+    args = scene_inputs(dev, n=n, size=size, big_face=big_face, d_attr=0)
+    assert args[2] is None and args[5] == 0
+    got, want = rasterize_both(args)
+    assert got[2].shape == (n, size, size, 0) and (want[0] >= 0).any()
+    assert_bit_equal(got, want)
+    phong, _ = rasterize_both(scene_inputs(dev, n=n, size=size,
+                                           big_face=big_face))
+    assert_bit_equal(got[:2], phong[:2])
+
+
+def test_renderer_depth_and_mask_only(dev):
+    """``render_image=False`` launches the no-attribute form; its depth and
+    mask equal the full render's, and the soft silhouette the CPU's."""
+    bank = make_test_meshes(3, subdivisions=2, radius=60.0, device=dev)
+    rot = torch.eye(3, device=dev).expand(2, 3, 3)
+    t = torch.tensor([[0.0, 0.0, 600.0], [10.0, -5.0, 700.0]], device=dev)
+    k = torch.tensor([[300.0, 0, 64], [0, 300.0, 64], [0, 0, 1]],
+                     device=dev).expand(2, 3, 3)
+    labels = torch.tensor([0, 1], device=dev)
+    full = Renderer(bank, image_size=(128, 128))(rot, t, k, labels)
+    opts = dict(render_image=False, render_mask=True, soft_blending=True)
+    before = rf.rasterize_tiles.launches
+    out = Renderer(bank, image_size=(128, 128), **opts)(rot, t, k, labels)
+    torch.cuda.synchronize()
+    assert rf.rasterize_tiles.launches == before + 1
+    assert "images" not in out and out["mask"].any()
+    assert torch.equal(out["mask"], full["mask"])
+    assert torch.equal(out["depth"].view(torch.int32),
+                       full["depth"].view(torch.int32))
+    cpu = Renderer(bank.to("cpu"), image_size=(128, 128), **opts)(
+        rot.cpu(), t.cpu(), k.cpu(), labels.cpu())
+    assert torch.equal(out["mask"].cpu(), cpu["mask"])
+    assert (out["masks"].cpu() - cpu["masks"]).abs().max() <= 1e-4
 
 
 @pytest.mark.parametrize("case", ["off_frame", "invalid"])
@@ -254,6 +296,8 @@ def test_rasterize_kernel_refuses(dev):
                 (misaligned, bbox, attr, h, w, d, k),
                 (coeff, bbox, attr, 250, w, d, k),
                 (coeff, bbox, attr, h, w, 17, k),
+                (coeff, bbox, attr, h, w, 0, k),
+                (coeff, bbox, None, h, w, d, k),
                 (coeff, bbox, attr, h, w, d, 12),
                 (coeff, bbox, attr, h, w, d, 264),
                 (coeff[:, :-4].contiguous(), bbox[:, :-4].contiguous(),

@@ -26,6 +26,7 @@ from flax.traverse_util import flatten_dict
 
 from port_common import (IMAGE, NUM_CLASS, jax_raft_variables, nchw, nhwc,
                          port_refiner)
+from port_common import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_port_pnp import angle_deg
 from scflow_torch.models import decoder as tdecoder
 from scflow_torch.models import flow_pose as tflow

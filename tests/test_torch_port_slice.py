@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 
 from port_common import IMAGE, NUM_CLASS, jax_refiner_variables, port_refiner
+from port_common import one_torch_thread  # noqa: F401 (autouse)
 
 ITERS = 3
 RADIUS = 20.0        # mesh radius (mm) that keeps the object inside 64²

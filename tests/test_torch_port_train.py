@@ -22,6 +22,7 @@ import torch
 from flax.traverse_util import flatten_dict
 
 from port_common import IMAGE, NUM_CLASS, jax_refiner_variables
+from port_common import one_torch_thread  # noqa: F401 (autouse)
 
 ITERS = 2
 RADIUS = 20.0

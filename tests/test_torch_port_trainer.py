@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from port_common import IMAGE, NUM_CLASS, perturb
+from port_common import one_torch_thread  # noqa: F401 (autouse)
 
 ITERS = 2
 RADIUS = 20.0
