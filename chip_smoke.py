@@ -155,10 +155,38 @@ Phases (each prints one JSON line; any failed check raises):
           fail that flow bound); the
           train step at batch 16 under A with ``remat`` (1 warm-up, 2
           steps, K1 1, K2 30 and 30), loss and gradient against the CPU.
-Then the ``kernels`` line (K1 and its no-attribute form, the K2 forward
-and backward in f32 and in bf16, each with its launches on every path),
-the card line from nvidia-smi and, last, ``{"ok": true, "device":
-{...}}``. Exits non-zero without a CUDA GPU.
+  k2_planes  K2 forward (eval batch) and backward (train batch) against
+          their plain versions in f32 and bf16 at every plane the JAX
+          function takes beside the encoders': ResNet-50's at 224² (7²,
+          14², 28²), 13×17, the 240² and 256² stems of 480- and 512-pixel
+          crops, 240×320, a view at storage offset 1, and 700² (past a
+          cluster: streamed); the form each takes (vector, general,
+          cluster), device time against the bound and F.instance_norm's,
+          at the k2 phases' tolerances.
+  backbone  ResNet(depth=50, norm="in") at the reference widths, plain
+          and V1d stems, batch 32 × 224², f32: K2 launches per forward (53
+          / 55) by form, forward time, peak memory, 2 samples against the
+          CPU port; one backward (K2 backward launches) and the gradient
+          of 2 samples against the CPU at train_parity's bound.
+  image_size  ``scflow_torch.test.main --image-size 512`` on an 8-image
+          tree written on the card (K1 1, K2 30 per packed batch, the
+          256² planes on the cluster form; 2 images' poses against the CPU to
+          POSE_TOL); one train step at 480² and batch 4 (K1 1, K2 30 and
+          30; 2 samples' loss and gradient against the CPU).
+  tools   VisTool in mask and contour modes at 480×640 with 6 objects of
+          the 21-class bank (K1's no-attribute form once a call, nothing
+          else; the image equal to the CPU port's), draw_pose_contour (K1
+          with attributes), the visualize, browse_dataset and
+          collect_3d_keypoints mains on a tree written on the card (PNGs
+          read back), and the library functions at full size against the
+          CPU: local_correlation on 256@32² at batch 32, both warps and
+          both flow filters at 32 × 256², InstanceMasks at 480×640.
+Each phase's seconds print on a ``{"phase": "seconds"}`` line. Then the
+``kernels`` line (K1 and its no-attribute form, the K2 forward and
+backward in f32 and in bf16, and K2's general and cluster forms, each
+with its launches on every path), the card line from nvidia-smi and,
+last, ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA
+GPU.
 """
 from __future__ import annotations
 
@@ -253,6 +281,33 @@ SIL_TOL = 1e-4            # soft silhouette, card vs CPU (the CPU tests')
 # scan vs tile face ids: the JAX package's own share of exact-edge
 # tie-breaks between its rasterizers (tests/test_render_modes.py)
 RASTER_MISMATCH = 1e-3
+# k2_planes: every plane the JAX instance_norm takes beside the encoders':
+# ResNet-50's at batch 32 × 224² (layer 4, 3, 2), an odd plane, the stems
+# of 480- and 512-pixel crops, the half-resolution plane of a 480×640
+# frame, a view whose storage starts one element into its buffer, and a
+# plane past a cluster's shared memory (streamed); (channels, height,
+# width, storage offset), forward at the eval batch, backward at the
+# train batch
+# the general form stages a plane's first 57,344 elements in shared memory
+# and streams the rest (``kMaxPlane`` in scflow_torch/ops/csrc/
+# instance_norm.cu): the bytes its streamed plane moves
+K2_STAGED = 56 * 1024
+K2_PLANES = ((2048, 7, 7, 0), (1024, 14, 14, 0), (512, 28, 28, 0),
+             (64, 13, 17, 0), (64, 240, 240, 0), (64, 256, 256, 0),
+             (64, 240, 320, 0), (96, 64, 64, 1), (4, 700, 700, 0))
+# backbone: ResNet-50 at the reference widths with instance norm; K2
+# launches per forward (16 bottlenecks × 3, 4 downsamples, the stem's 1
+# or the deep stem's 3)
+BACKBONE_BATCH, BACKBONE_SIZE, BACKBONE_REL = 32, 224, 1e-4
+BACKBONE_K2 = {False: 53, True: 55}
+# image_size: the eval CLI at 512² on an 8-image tree (1-3 objects each),
+# the train step at 480² at batch 4
+IMAGE_EVAL_SIZE, IMAGE_TRAIN_SIZE, IMAGE_TRAIN_BATCH = 512, 480, 4
+IMAGE_EVAL_IMAGES, IMAGE_EVAL_OBJECTS = 8, (1, 3)
+# tools: VisTool on YCB-V's frame with 6 objects of the 21-class bank;
+# the library functions at full size (local correlation on the encoders'
+# 1/8 features, warps and flow filters on the crops)
+TOOLS_OBJECTS, CORR_SHAPE, CORR_RADIUS = 6, (BATCH, 256, 32, 32), 4
 
 
 def emit(**fields) -> None:
@@ -518,14 +573,37 @@ def phase_k2() -> list:
                         totals)
 
 
-def reset_counts() -> None:
+def reset_counts(general_ok: bool = False) -> None:
+    """Set every launch count to 0. Unless ``general_ok``, first check that
+    K2 launched only its vector form since the last reset: every path
+    before the new phases feeds it encoder planes that take that form."""
     from scflow_torch.ops.fused_norm import instance_norm_bwd, instance_norm_fwd
     from scflow_torch.ops.rasterize_fast import rasterize_tiles
 
+    if not general_ok:
+        forms = form_counts()
+        check(not any(forms.values()),
+              f"K2 launched another form than the vector form on a path of "
+              f"encoder planes: {forms}")
+
     rasterize_tiles.launches = 0
     rasterize_tiles.bare_launches = 0
-    instance_norm_fwd.launches = 0
-    instance_norm_bwd.launches = 0
+    for fn in (instance_norm_fwd, instance_norm_bwd):
+        fn.launches = 0
+        fn.form_launches.clear()
+
+
+def form_counts() -> dict:
+    """K2's launches of its general form (of those, the streamed ones) and
+    its cluster form, forward and backward, per dtype, since the reset:
+    ``{"fwd.general.f32": n, ...}``, as the wrappers counted them."""
+    from scflow_torch.ops.fused_norm import instance_norm_bwd, instance_norm_fwd
+
+    return {f"{name}.{form}.{dt}": fn.form_launches[form, dt]
+            for name, fn in (("fwd", instance_norm_fwd),
+                             ("bwd", instance_norm_bwd))
+            for form in ("general", "cluster", "streamed")
+            for dt in ("f32", "bf16")}
 
 
 def counts() -> tuple[int, int, int]:
@@ -639,14 +717,92 @@ def phase_profile(model, renderer, cfg, step, batch) -> None:
                        "ms_per_step": e.self_device_time_total / 1e3 / 2,
                        "calls_per_step": e.count / 2} for e in top])
 
-def phase_k2_bwd() -> list:
-    """Rows for the f32 and the bf16 backward, per train step (10 launches
-    of each encoder shape at the train batch)."""
+def k2_bwd_check(x, gy, scale, what: str) -> tuple[float, float]:
+    """``instance_norm_bwd`` against its plain version: dx as the forward
+    (f32 within 1e-5 + 1e-5·|ref|, bf16 one rounding step more); dscale,
+    dbias within 1e-5 of the sums of their terms' magnitudes. Raises past
+    them; returns dx's max abs error and the sums' max relative one."""
+    import torch
+
+    from scflow_torch.ops.fused_norm import (instance_norm_bwd,
+                                             instance_norm_bwd_reference)
+
+    dx, dscale, dbias = instance_norm_bwd(x, gy, scale)
+    want = instance_norm_bwd_reference(x, gy, scale)
+    torch.cuda.synchronize()
+    ref = want[0].float()
+    diff = (dx.float() - ref).abs()
+    err = diff.max().item()
+    if x.dtype == torch.float32:       # sums in another order
+        ok = bool((diff <= 1e-5 + 1e-5 * ref.abs()).all())
+    else:            # f32 arithmetic's spread, then one bf16 rounding step
+        ok = bool((diff <= 1e-5 + bf16_ulp(ref)).all())
+    check(ok, f"{what} {x.dtype} {tuple(x.shape)}: dx max err {err}")
+    xf = x.float()
+    mu = xf.mean((2, 3), keepdim=True)
+    xhat = (xf - mu) * torch.rsqrt(
+        (xf - mu).square().mean((2, 3), keepdim=True) + 1e-5)
+    sum_err = 0.0
+    for got, ref_s, terms in ((dscale, want[1], gy.float() * xhat),
+                              (dbias, want[2], gy.float())):
+        mag = terms.abs().sum((0, 2, 3))
+        d = (got - ref_s).abs()
+        check(bool((d <= 1e-5 * mag).all()),
+              f"{what} {x.dtype} {tuple(x.shape)}: dscale/dbias err "
+              f"{d.max().item()}")
+        sum_err = max(sum_err, (d / mag).max().item())
+    return err, sum_err
+
+
+def k2_bwd_times(x, gy, scale, bias) -> tuple:
+    """(device ms, call ms, plain ms, F.instance_norm's autograd backward
+    ms) of the backward on input copies that are not in L2."""
     import torch
     import torch.nn.functional as F
 
     from scflow_torch.ops.fused_norm import (instance_norm_bwd,
                                              instance_norm_bwd_reference)
+
+    copies = max(2, math.ceil(4 * L2_BYTES / (2 * x.numel()
+                                              * x.element_size())))
+    pairs = itertools.cycle([(x, gy)] + [(x.clone(), gy.clone())
+                                         for _ in range(copies - 1)])
+
+    def kernel():
+        a, b = next(pairs)
+        return instance_norm_bwd(a, b, scale)
+
+    def plain():
+        a, b = next(pairs)
+        return instance_norm_bwd_reference(a, b, scale)
+
+    ms = device_ms(kernel, KERNEL_REPS)
+    one = call_ms(kernel, KERNEL_REPS)
+    plain_ms = device_ms(plain, KERNEL_REPS)
+    # F.instance_norm's autograd backward, one kept graph per copy
+    graphs = []
+    for _ in range(copies):
+        a, b = next(pairs)
+        leaves = [a.detach().requires_grad_(),
+                  scale.detach().requires_grad_(),
+                  bias.detach().requires_grad_()]
+        y = F.instance_norm(leaves[0], weight=leaves[1], bias=leaves[2],
+                            eps=1e-5)
+        graphs.append((y, leaves, b))
+    lib_graphs = itertools.cycle(graphs)
+
+    def library():
+        y, leaves, b = next(lib_graphs)
+        return torch.autograd.grad(y, leaves, b, retain_graph=True)
+
+    lib = device_ms(library, KERNEL_REPS)
+    return ms, one, plain_ms, lib
+
+
+def phase_k2_bwd() -> list:
+    """Rows for the f32 and the bf16 backward, per train step (10 launches
+    of each encoder shape at the train batch)."""
+    import torch
 
     g = torch.Generator().manual_seed(2)
     totals = _totals()
@@ -658,65 +814,8 @@ def phase_k2_bwd() -> list:
         bias = (0.2 * torch.randn(c, generator=g)).cuda()
         for dtype in (torch.float32, torch.bfloat16):
             x, gy = x32.to(dtype), gy32.to(dtype)
-            dx, dscale, dbias = instance_norm_bwd(x, gy, scale)
-            want = instance_norm_bwd_reference(x, gy, scale)
-            torch.cuda.synchronize()
-            ref = want[0].float()
-            diff = (dx.float() - ref).abs()
-            err = diff.max().item()
-            if dtype == torch.float32:     # sums in another order
-                ok = bool((diff <= 1e-5 + 1e-5 * ref.abs()).all())
-            else:        # f32 arithmetic's spread, then one bf16 rounding step
-                ok = bool((diff <= 1e-5 + bf16_ulp(ref)).all())
-            check(ok, f"k2_bwd {dtype} {tuple(x.shape)}: dx max err {err}")
-            # dscale, dbias: 1e-5 of the sums of their terms' magnitudes
-            xf = x.float()
-            mu = xf.mean((2, 3), keepdim=True)
-            xhat = (xf - mu) * torch.rsqrt(
-                (xf - mu).square().mean((2, 3), keepdim=True) + 1e-5)
-            sum_err = 0.0
-            for got, ref_s, terms in ((dscale, want[1], gy.float() * xhat),
-                                      (dbias, want[2], gy.float())):
-                mag = terms.abs().sum((0, 2, 3))
-                d = (got - ref_s).abs()
-                check(bool((d <= 1e-5 * mag).all()),
-                      f"k2_bwd {dtype} {tuple(x.shape)}: dscale/dbias err "
-                      f"{d.max().item()}")
-                sum_err = max(sum_err, (d / mag).max().item())
-            copies = max(2, math.ceil(4 * L2_BYTES / (2 * x.numel()
-                                                      * x.element_size())))
-            pairs = itertools.cycle([(x, gy)] + [(x.clone(), gy.clone())
-                                                 for _ in range(copies - 1)])
-
-            def kernel():
-                a, b = next(pairs)
-                return instance_norm_bwd(a, b, scale)
-
-            def plain():
-                a, b = next(pairs)
-                return instance_norm_bwd_reference(a, b, scale)
-
-            ms = device_ms(kernel, KERNEL_REPS)
-            one = call_ms(kernel, KERNEL_REPS)
-            plain_ms = device_ms(plain, KERNEL_REPS)
-            # F.instance_norm's autograd backward, one kept graph per copy
-            graphs = []
-            for _ in range(copies):
-                a, b = next(pairs)
-                leaves = [a.detach().requires_grad_(),
-                          scale.detach().requires_grad_(),
-                          bias.detach().requires_grad_()]
-                y = F.instance_norm(leaves[0], weight=leaves[1],
-                                    bias=leaves[2], eps=1e-5)
-                graphs.append((y, leaves, b))
-            lib_graphs = itertools.cycle(graphs)
-
-            def library():
-                y, leaves, b = next(lib_graphs)
-                return torch.autograd.grad(y, leaves, b, retain_graph=True)
-
-            lib = device_ms(library, KERNEL_REPS)
-            del graphs, lib_graphs, pairs
+            err, sum_err = k2_bwd_check(x, gy, scale, "k2_bwd")
+            ms, one, plain_ms, lib = k2_bwd_times(x, gy, scale, bias)
             moved = 3 * x.numel() * x.element_size() + 3 * c * 4
             ops = x.numel() * K2_BWD_OPS_PER_ELEM
             b_ms, b_by = bound_ms(moved, ops)
@@ -1930,11 +2029,12 @@ def paeth_png(img) -> bytes:
             + chunk(b"IEND", b""))
 
 
-def bop_cli_args(root: str, device: str, budget: int) -> list:
+def bop_cli_args(root: str, device: str, budget: int,
+                 size: int = SIZE[0]) -> list:
     return ["--data-root", f"{root}/test", "--ref-annots-root",
             f"{root}/init_poses", "--image-list",
             f"{root}/image_lists/test.txt", "--mesh-dir", f"{root}/models",
-            "--num-classes", str(NUM_CLASS), "--image-size", str(SIZE[0]),
+            "--num-classes", str(NUM_CLASS), "--image-size", str(size),
             "--iters", str(ITERS), "--slot-budget", str(budget),
             "--device", device]
 
@@ -2907,6 +3007,537 @@ def phase_train_pbr(train_ms: float, smi: str) -> tuple:
     return launches
 
 
+def k2_plane_inputs(n: int, c: int, h: int, w: int, offset: int, seed: int,
+                    dtype):
+    """Seeded (x, g, scale, bias) on the card; x and g contiguous views
+    starting ``offset`` elements into their buffers."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+
+    def placed(t):
+        buf = torch.empty(t.numel() + offset, dtype=dtype, device="cuda")
+        view = buf[offset:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    x = placed((torch.randn(n, c, h, w, generator=gen) * 2 + 0.5).cuda())
+    gy = placed(torch.randn(n, c, h, w, generator=gen).cuda())
+    scale = (1 + 0.3 * torch.randn(c, generator=gen)).cuda()
+    bias = (0.2 * torch.randn(c, generator=gen)).cuda()
+    return x, gy, scale, bias
+
+
+def phase_k2_planes() -> tuple[list, dict]:
+    """K2 forward (eval batch) and backward (train batch) against their
+    plain versions at ``K2_PLANES`` in f32 and bf16: the form each takes,
+    errors within the k2 phases' bounds, device time against the bound
+    and ``F.instance_norm``'s. Returns the kernels-line rows of the
+    general form (its streamed plane included) and the cluster form (per
+    dtype, summed over the planes that take that form, one launch each)
+    and the launches of this check."""
+    import torch
+    import torch.nn.functional as F
+
+    from scflow_torch.ops.fused_norm import (instance_norm_fwd,
+                                             instance_norm_reference)
+
+    t_phase = time.perf_counter()
+    reset_counts()
+    totals = {(d, form, dt): dict(ms=0.0, call_ms=0.0, plain_ms=0.0,
+                                  library_ms=0.0, bytes=0.0, ops=0.0,
+                                  worst=0.0, planes=[])
+              for d in ("fwd", "bwd") for form in ("general", "cluster")
+              for dt in ("f32", "bf16")}
+    for i, (c, h, w, offset) in enumerate(K2_PLANES):
+        for dtype in (torch.float32, torch.bfloat16):
+            dt = "f32" if dtype == torch.float32 else "bf16"
+            x, gy, scale, bias = k2_plane_inputs(BATCH, c, h, w, offset, i,
+                                                 dtype)
+            hw = h * w
+            # the form the check's launch took, as its wrapper counted it
+            before = form_counts()
+            err = k2_fwd_check(x, scale, bias, "k2_planes")
+            took = {k.split(".")[1] for k, v in form_counts().items()
+                    if v != before[k]}
+            form = ({"general", "cluster"} & took or {"vector"}).pop()
+            streamed = "streamed" in took
+            check(form != "vector" or offset == 0,
+                  "k2_planes: an unaligned view took the vector form")
+            xs = cold_inputs(x)
+            fwd = dict(
+                ms=device_ms(lambda: instance_norm_fwd(next(xs), scale, bias),
+                             KERNEL_REPS),
+                call_ms=call_ms(lambda: instance_norm_fwd(next(xs), scale,
+                                                          bias), KERNEL_REPS),
+                plain_ms=device_ms(lambda: instance_norm_reference(
+                    next(xs), scale, bias), KERNEL_REPS),
+                library_ms=device_ms(lambda: F.instance_norm(
+                    next(xs), weight=scale, bias=bias, eps=1e-5),
+                    KERNEL_REPS),
+                bytes=2 * x.numel() * x.element_size(),
+                ops=x.numel() * K2_OPS_PER_ELEM, worst=err)
+            del xs
+            # the bytes this design moves: a streamed plane's variance and
+            # output passes read its part past shared memory again
+            over = (hw - K2_STAGED) * x.shape[0] * c if streamed else 0
+            fwd["kernel_bytes"] = fwd["bytes"] + 2 * over * x.element_size()
+            xb, gb = x[:TRAIN_BATCH], gy[:TRAIN_BATCH]
+            if offset:            # the train batch's views, offset as well
+                xb, gb, _, _ = k2_plane_inputs(TRAIN_BATCH, c, h, w, offset,
+                                               i, dtype)
+            b_err, sum_err = k2_bwd_check(xb, gb, scale, "k2_planes bwd")
+            ms, one, plain_ms, lib = k2_bwd_times(xb, gb, scale, bias)
+            bwd = dict(ms=ms, call_ms=one, plain_ms=plain_ms, library_ms=lib,
+                       bytes=3 * xb.numel() * xb.element_size() + 3 * c * 4,
+                       ops=xb.numel() * K2_BWD_OPS_PER_ELEM, worst=b_err)
+            for d, r in (("fwd", fwd), ("bwd", bwd)):
+                r["bound_ms"], r["bound_by"] = bound_ms(r["bytes"], r["ops"])
+            emit(phase="k2_planes", plane=[h, w], channels=c,
+                 storage_offset=offset, dtype=str(dtype), form=form,
+                 streamed=streamed,
+                 fwd=dict(shape=list(x.shape), **fwd),
+                 bwd=dict(shape=list(xb.shape), sums_max_rel_err=sum_err,
+                          **bwd))
+            if form == "vector":
+                continue
+            for d, r in (("fwd", fwd), ("bwd", bwd)):
+                tot = totals[(d, form, dt)]
+                tot["worst"] = max(tot["worst"], r["worst"])
+                tot["planes"].append(f"{c}@{h}x{w}" + (f"+{offset}"
+                                                       if offset else "")
+                                     + (" streamed" if streamed else ""))
+                for key in ("ms", "call_ms", "plain_ms", "library_ms",
+                            "bytes", "ops"):
+                    tot[key] += r[key]
+    rows = []
+    for (d, form, dt), tot in totals.items():
+        b_ms, b_by = bound_ms(tot["bytes"], tot["ops"])
+        name = "instance_norm_fwd" if d == "fwd" else "instance_norm_bwd"
+        rows.append(dict(
+            form=form, dtype=dt,
+            name=f"{name}[{form}]" if dt == "f32" else f"{name}[{form},bf16]",
+            route="cuda", source="scflow_torch/ops/csrc/instance_norm.cu",
+            replaces=("scflow_tpu/ops/fused_norm.py:39" if d == "fwd" else
+                      "scflow_tpu/ops/fused_norm.py:148 (_bwd, plain XLA)"),
+            planes=tot["planes"], max_abs_err=tot["worst"], ms=tot["ms"],
+            call_ms=tot["call_ms"], plain_ms=tot["plain_ms"], bound_ms=b_ms,
+            bound_by=b_by, library_ms=tot["library_ms"]))
+    checked = form_counts()
+    emit(phase="k2_planes_done", launches_by_form=checked,
+         phase_seconds=time.perf_counter() - t_phase)
+    return rows, checked
+
+
+def phase_backbone() -> dict:
+    """ResNet-50 with instance norm at the reference widths, plain and V1d
+    stems, batch 32 × 224², f32: one forward (K2 launches by form, time,
+    peak memory; 2 samples against the CPU port), one backward (K2
+    backward launches; the gradient of 2 samples against the CPU within
+    ``train_parity``'s bound). Returns each run's launches of K1, the K2
+    forward and backward, and K2's by form: the forward alone and forward
+    with backward, per stem."""
+    import copy
+
+    import torch
+
+    from scflow_torch.models import ResNet
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randn(BACKBONE_BATCH, 3, BACKBONE_SIZE, BACKBONE_SIZE,
+                    generator=gen).cuda()
+    out, launches = {}, {}
+    for deep in (False, True):
+        name = "v1d" if deep else "plain"
+        torch.manual_seed(50 + deep)
+        model = ResNet(50, 64, (3,), deep, "in").cuda()
+        with torch.no_grad():
+            model(x)                                    # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(general_ok=True)
+            y = model(x)
+            torch.cuda.synchronize()
+            k1, k2, k2b = counts()
+            forms = form_counts()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            fwd_ms = call_ms(lambda: model(x), 3, 1)
+        check((k1, k2, k2b) == (0, BACKBONE_K2[deep], 0),
+              f"backbone {name}: launches {k1}/{k2}/{k2b}")
+        check(forms["fwd.general.f32"] > 0 and not any(
+            v for k, v in forms.items() if k != "fwd.general.f32"),
+              f"backbone {name}: K2 forms {forms}")
+        check(bool(torch.isfinite(y).all()), f"backbone {name}: not finite")
+        # 2 samples on the CPU, and again with the input moved by 1e-6 of
+        # itself: the card within max(1e-4, 5 × that spread) of the output
+        # scale (53 f32 layers of convolutions summed in another order)
+        cpu_model = copy.deepcopy(model).cpu()
+        with torch.no_grad():
+            want = cpu_model(x[:2].cpu())
+            nudged = cpu_model(x[:2].cpu() * (1 + 1e-6))
+        scale = want.abs().max()
+        rel = ((y[:2].cpu() - want).abs().max() / scale).item()
+        spread = ((nudged - want).abs().max() / scale).item()
+        bound = max(BACKBONE_REL, 5 * spread)
+        check(rel <= bound, f"backbone {name}: card vs CPU {rel} > {bound}")
+        rec = dict(launches_per_forward=k2, launches_by_form=forms,
+                   forward_ms=fwd_ms, peak_mem_gib=peak,
+                   cpu_parity={"samples": 2, "max_rel_err": rel,
+                               "cpu_spread": spread, "bound": bound})
+        # one backward at the batch: K2 backward launches
+        w = torch.randn(y.shape, generator=gen).cuda()
+        reset_counts(general_ok=True)
+        (model(x) * w).sum().backward()
+        torch.cuda.synchronize()
+        k1, k2, k2b = counts()
+        bforms = form_counts()
+        check((k2, k2b) == (BACKBONE_K2[deep],) * 2,
+              f"backbone {name}: backward launches {k2}/{k2b}")
+        rec.update(backward_launches=k2b, backward_launches_by_form=bforms)
+        launches[f"backbone_{name}"] = (0, BACKBONE_K2[deep], 0, forms)
+        launches[f"backbone_{name}_train"] = (k1, k2, k2b, bforms)
+        if not deep:
+            # the gradient of 2 samples: card, CPU, CPU with the input
+            # moved by 1e-6 of itself (the CPU's own spread)
+            grads = []
+            for dev, scale in (("cuda", 1.0), ("cpu", 1.0), ("cpu", 1 + 1e-6)):
+                m = copy.deepcopy(cpu_model).to(dev)
+                (m(x[:2].to(dev) * scale) * w[:2].to(dev)).sum().backward()
+                grads.append(torch.cat([p.grad.float().cpu().ravel()
+                                        for p in m.parameters()]))
+            g_gpu, g_cpu, g_nudged = grads
+            spread = ((g_nudged - g_cpu).norm() / g_cpu.norm()).item()
+            err = ((g_gpu - g_cpu).norm() / g_cpu.norm()).item()
+            bound = max(1e-3, 5 * spread)
+            check(err <= bound, f"backbone: gradient rel err {err} > {bound}")
+            rec["grad_parity"] = dict(samples=2, grad_rel_err=err,
+                                      cpu_grad_spread=spread,
+                                      grad_bound=bound)
+        out[name] = rec
+        del model, cpu_model, y
+        torch.cuda.empty_cache()
+    emit(phase="backbone", depth=50, base_channels=64, norm="in",
+         batch=BACKBONE_BATCH, image=[BACKBONE_SIZE] * 2, dtype="float32",
+         **out, phase_seconds=time.perf_counter() - t_phase)
+    return launches
+
+
+def phase_image_size(bank) -> dict:
+    """``--image-size`` past one CTA's plane: ``scflow_torch.test.main
+    --image-size 512`` on an 8-image tree written on the card (K1 1 and K2
+    30 per packed batch, the 256² planes on the cluster form; 2 images' poses
+    against the CPU), and one train step at 480² and batch 4 (K1 1, K2 30
+    and 30; 2 samples' loss and gradient against the CPU). Returns each
+    run's launches and forms."""
+    import tempfile
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    import scflow_torch.test as cli
+    import scflow_torch.training.evaluate as evaluate_mod
+    from scflow_torch.data import synthetic_batch
+    from scflow_torch.rendering import Renderer
+    from scflow_torch.tools.make_synthetic_bop import main as make_tree
+    from scflow_torch.training import (Config, DataConfig, ModelConfig,
+                                       RenderConfig, build_model,
+                                       build_points_bank, make_optimizer,
+                                       make_train_step)
+
+    t_phase = time.perf_counter()
+    pack, slots = evaluate_mod.pack_eval_batches, []
+
+    def packed(items, budget):
+        for batch, metas in pack(items, budget):
+            slots.append(int(batch["sample_valid"].sum()))
+            yield batch, metas
+
+    size = IMAGE_EVAL_SIZE
+    with tempfile.TemporaryDirectory(prefix="scflow_size_") as root:
+        tree = make_tree(["--out", root, "--num-images",
+                          str(IMAGE_EVAL_IMAGES), "--num-classes",
+                          str(NUM_CLASS), "--min-objects",
+                          str(IMAGE_EVAL_OBJECTS[0]), "--max-objects",
+                          str(IMAGE_EVAL_OBJECTS[1]), "--seed", "11",
+                          "--device", "cuda"])
+        reset_counts(general_ok=True)
+        t0 = time.perf_counter()
+        with mock.patch.object(evaluate_mod, "pack_eval_batches", packed):
+            metrics, results = cli.main(
+                bop_cli_args(root, "cuda", BOP_BUDGET, size)
+                + ["--save-dir", f"{root}/res"])
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        k1, k2, k2b = counts()
+        eval_forms = form_counts()
+        batches = len(slots)
+        check((k1, k2, k2b) == (batches, 30 * batches, 0),
+              f"image_size: launches {k1}/{k2}/{k2b} over {batches} batches")
+        # each encoder pass's stem and layer 1 (4 norms) see (512/2)²
+        # planes: the cluster form, 10 launches a batch
+        check(eval_forms["fwd.cluster.f32"] == 10 * batches and not any(
+            v for k, v in eval_forms.items() if k != "fwd.cluster.f32"),
+              f"image_size: K2 forms {eval_forms}")
+        check(metrics["num_instances"] == tree["objects"]
+              and len(results) == IMAGE_EVAL_IMAGES,
+              "image_size: an image or object has no record")
+        for r in results:
+            check(bool(np.isfinite(r["rotations"]).all()
+                       and np.isfinite(r["translations"]).all()),
+                  "image_size: a pose is not finite")
+        n_cpu = sum(len(r["labels"]) for r in results[:BOP_CPU_IMAGES])
+        check(n_cpu > 0, "image_size: the first images have no object")
+        t0 = time.perf_counter()
+        _, cpu_results = cli.main(bop_cli_args(root, "cpu", n_cpu, size)
+                                  + ["--limit", str(BOP_CPU_IMAGES),
+                                     "--save-dir", f"{root}/res_cpu"])
+        cpu_s = time.perf_counter() - t0
+        check(len(cpu_results) == BOP_CPU_IMAGES,
+              f"image_size: {len(cpu_results)} CPU results")
+    rot_err = trans_err = 0.0
+    for g, c in zip(results, cpu_results):
+        rot_err = max(rot_err, float(np.abs(g["rotations"]
+                                            - c["rotations"]).max()))
+        diff = np.abs(g["translations"] - c["translations"])
+        check(bool((diff <= POSE_TOL["trans_atol"] + POSE_TOL["trans_rtol"]
+                    * np.abs(c["translations"])).all()),
+              f"image_size cpu parity: translation err {diff.max()}")
+        trans_err = max(trans_err, float(diff.max()))
+    check(rot_err <= POSE_TOL["rot_atol"],
+          f"image_size cpu parity: rotation err {rot_err}")
+
+    side = IMAGE_TRAIN_SIZE
+    cfg = Config(model=ModelConfig(num_class=NUM_CLASS, iters=ITERS,
+                                   test_iters=ITERS),
+                 render=RenderConfig(image_size=(side, side)),
+                 data=DataConfig(batch_size=IMAGE_TRAIN_BATCH))
+    renderer = Renderer(bank, image_size=(side, side))
+    points = build_points_bank(bank, symmetric_classes=range(0, NUM_CLASS, 2),
+                               num_points=cfg.loss.num_loss_points)
+    batch = synthetic_batch(torch.Generator().manual_seed(12), renderer,
+                            IMAGE_TRAIN_BATCH)
+    model = build_model(cfg, device="cuda", seed=0)
+    step = make_train_step(model, renderer, points, cfg,
+                           make_optimizer(cfg, model.parameters()),
+                           device="cuda")
+    reset_counts(general_ok=True)
+    t0 = time.perf_counter()
+    metrics_t = step(batch)
+    torch.cuda.synchronize()
+    train_ms = 1e3 * (time.perf_counter() - t0)
+    train_counts, train_forms = counts(), form_counts()
+    check(train_counts == (1, 30, 30),
+          f"image_size train: launches {train_counts}")
+    check(train_forms["fwd.cluster.f32"] == train_forms["bwd.cluster.f32"]
+          == 10 and not any(v for k, v in train_forms.items()
+                            if k not in ("fwd.cluster.f32", "bwd.cluster.f32")),
+          f"image_size train: K2 forms {train_forms}")
+    for key, v in metrics_t.items():
+        check(bool(torch.isfinite(v).all()), f"image_size train: {key}")
+    parity = train_parity(cfg, renderer, points, batch)
+    del model, step
+    torch.cuda.empty_cache()
+    emit(phase="image_size",
+         eval=dict(image=[size, size], images=IMAGE_EVAL_IMAGES,
+                   objects=tree["objects"], batches=batches, loop_s=eval_s,
+                   launches_per_batch={"rasterize_tiles": k1 / batches,
+                                       "instance_norm_fwd": k2 / batches},
+                   launches_by_form=eval_forms,
+                   metric={k: metrics[k] for k in ("average/add_0.10d",
+                                                   "num_instances")},
+                   cpu_parity={"images": BOP_CPU_IMAGES, "objects": n_cpu,
+                               "rotation_max_abs_err": rot_err,
+                               "translation_max_abs_err": trans_err,
+                               "cpu_seconds": cpu_s, **POSE_TOL}),
+         train=dict(image=[side, side], batch=IMAGE_TRAIN_BATCH,
+                    step_ms=train_ms, launches=list(train_counts),
+                    launches_by_form=train_forms,
+                    loss=metrics_t["loss"].item(), cpu_parity=parity),
+         phase_seconds=time.perf_counter() - t_phase)
+    return {"image_size_eval": ((k1, k2, k2b), eval_forms),
+            "image_size_train": (train_counts, train_forms)}
+
+
+def phase_tools(bank) -> dict:
+    """The visualisation tools and the library functions on the card:
+    ``VisTool`` (mask, contour) at 480×640 with 6 objects (K1's
+    no-attribute form once a call, nothing else; the image equal to the
+    CPU port's), ``draw_pose_contour`` (K1 with attributes), the tools'
+    ``main`` on a tree written on the card (PNGs read back), and the
+    library functions at full size against the CPU. Returns the VisTool
+    calls' launches."""
+    import glob
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from scflow_torch.data import InstanceMasks
+    from scflow_torch.data.imageio import imread
+    from scflow_torch.geometry import (axis_angle_to_matrix,
+                                       filter_flow_by_depth,
+                                       filter_flow_by_face_index,
+                                       flow_from_pose_and_depth)
+    from scflow_torch.models import local_correlation
+    from scflow_torch.ops.rasterize_fast import rasterize_fast, rasterize_tiles
+    from scflow_torch.rendering import Renderer, make_test_meshes
+    from scflow_torch.tools import (browse_dataset, collect_3d_keypoints,
+                                    visualize)
+    from scflow_torch.tools.make_synthetic_bop import main as make_tree
+    from scflow_torch.utils import backward_warp, forward_warp_splat
+
+    t_phase = time.perf_counter()
+    cpu_bank = make_test_meshes(NUM_CLASS, subdivisions=3, radius=60.0,
+                                device="cpu")
+    rots, trans, ks, labels = (t[:TOOLS_OBJECTS].numpy()
+                               for t in frame_poses(BATCH, 13, FRAME))
+    image = np.random.default_rng(13).integers(0, 256, (*FRAME, 3), np.uint8)
+    vis, launches = {}, {}
+    for mode in ("mask", "contour"):
+        card = visualize.VisTool(Renderer(bank, image_size=FRAME), mode)
+        cpu = visualize.VisTool(Renderer(cpu_bank, image_size=FRAME), mode)
+        reset_counts(general_ok=True)
+        t0 = time.perf_counter()
+        got = card(image, rots, trans, labels, ks)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        launches[f"vistool_{mode}"] = (*counts(), rasterize_tiles.bare_launches)
+        check(launches[f"vistool_{mode}"] == (1, 0, 0, 1),
+              f"tools: VisTool {mode} launches {launches[f'vistool_{mode}']}")
+        want = cpu(image, rots, trans, labels, ks)
+        check(np.array_equal(got, want), f"tools: VisTool {mode} card != CPU")
+        vis[mode] = dict(ms=ms, changed_pixels=int((got != image).any(-1).sum()))
+    reset_counts(general_ok=True)
+    full = Renderer(bank, image_size=FRAME)
+    contour = visualize.draw_pose_contour(image, full, ks[0], rots[0],
+                                          trans[0], int(labels[0]))
+    contour_counts = (*counts(), rasterize_tiles.bare_launches)
+    check(contour_counts == (1, 0, 0, 0),
+          f"tools: draw_pose_contour launches {contour_counts}")
+    check(np.array_equal(contour, visualize.draw_pose_contour(
+        image, Renderer(cpu_bank, image_size=FRAME), ks[0], rots[0], trans[0],
+        int(labels[0]))), "tools: draw_pose_contour card != CPU")
+
+    # the tools' main on a tree written on the card
+    with tempfile.TemporaryDirectory(prefix="scflow_tools_") as root:
+        make_tree(["--out", f"{root}/bop", "--num-images", "2",
+                   "--num-classes", str(NUM_CLASS), "--seed", "13",
+                   "--device", "cuda"])
+        make_tree(["--out", f"{root}/train", "--split", "train_real",
+                   "--num-images", "2", "--num-classes", str(NUM_CLASS),
+                   "--seed", "14", "--device", "cuda"])
+        t0 = time.perf_counter()
+        pngs = [visualize.main([
+            "--data-root", f"{root}/bop/test", "--ref-annots-root",
+            f"{root}/bop/init_poses", "--image-list",
+            f"{root}/bop/image_lists/test.txt", "--mesh-dir",
+            f"{root}/bop/models", "--out", f"{root}/vis.png"])]
+        pngs += browse_dataset.main(["--synthetic", "--num", "2", "--out-dir",
+                                     f"{root}/browse"])
+        pngs += browse_dataset.main([
+            "--data-root", f"{root}/train/train_real", "--image-list",
+            f"{root}/train/image_lists/train_real.txt", "--mesh-dir",
+            f"{root}/train/models", "--patch", "--num", "2", "--out-dir",
+            f"{root}/browse_disk"])
+        kp = collect_3d_keypoints.main(["--mesh-dir", f"{root}/bop/models",
+                                        "--out", f"{root}/kp.json"])
+        tools_s = time.perf_counter() - t0
+        shapes = [list(imread(p).shape) for p in pngs]
+        check(shapes[0] == [*FRAME, 3] and len(kp) == len(glob.glob(
+            os.path.join(root, "bop", "models", "*.ply"))),
+              f"tools: outputs {shapes[:1]} {len(kp)}")
+
+    # the library functions at full size, card against the CPU
+    lib = {}
+    gen = torch.Generator().manual_seed(15)
+    f1, f2 = (torch.randn(*CORR_SHAPE, generator=gen) for _ in range(2))
+    for norm in (True, False):
+        got = local_correlation(f1.cuda(), f2.cuda(), CORR_RADIUS, norm)
+        want = local_correlation(f1, f2, CORR_RADIUS, norm)
+        err = ((got.cpu() - want).abs().max() / want.abs().max()).item()
+        check(err <= 1e-5, f"tools: local_correlation norm={norm} {err}")
+        lib[f"local_correlation_norm{int(norm)}_rel_err"] = err
+    crop = Renderer(bank, image_size=SIZE, render_image=False)
+    poses = frame_poses(BATCH, 16, SIZE)
+    tgt_r = axis_angle_to_matrix(0.03 * torch.randn(BATCH, 3, generator=gen)
+                                 ) @ poses[0]
+    tgt_t = poses[1] + torch.tensor([2.0, -2.0, 10.0])
+    frags = []
+    for r, t in ((poses[0], poses[1]), (tgt_r, tgt_t)):
+        inp = crop.rasterizer_inputs(r.cuda(), t.cuda(), poses[2].cuda(),
+                                     poses[3].cuda())
+        frags.append(rasterize_fast(inp["tri_xy"], inp["tri_z"],
+                                    inp["face_valid"], *SIZE, tri_attrs=None,
+                                    return_bary=False))
+    k = poses[2].cuda()
+    flow = flow_from_pose_and_depth(poses[0].cuda(), poses[1].cuda(),
+                                    tgt_r.cuda(), tgt_t.cuda(),
+                                    frags[0]["zbuf"], k)
+    image32 = torch.rand(BATCH, 3, *SIZE, generator=gen).cuda()
+    card = dict(
+        depth=filter_flow_by_depth(flow, frags[0]["zbuf"], frags[1]["zbuf"],
+                                   k, poses[0].cuda(), poses[1].cuda(),
+                                   tgt_r.cuda(), tgt_t.cuda()),
+        face=filter_flow_by_face_index(flow, frags[0]["face_id"],
+                                       frags[1]["face_id"]),
+        backward=backward_warp(image32, flow.clamp(-50, 50)),
+        splat=forward_warp_splat(image32, flow.clamp(-50, 50),
+                                 frags[0]["face_id"] >= 0))
+    cpu_args = [a.cpu() for a in (flow, frags[0]["zbuf"], frags[1]["zbuf"], k,
+                                  poses[0], poses[1], tgt_r, tgt_t)]
+    host = dict(
+        depth=filter_flow_by_depth(*cpu_args),
+        face=filter_flow_by_face_index(cpu_args[0], frags[0]["face_id"].cpu(),
+                                       frags[1]["face_id"].cpu()),
+        backward=backward_warp(image32.cpu(), cpu_args[0].clamp(-50, 50)),
+        splat=forward_warp_splat(image32.cpu(), cpu_args[0].clamp(-50, 50),
+                                 frags[0]["face_id"].cpu() >= 0))
+    for key in card:
+        got, want = card[key].cpu(), host[key]
+        if key == "depth":
+            # the consistency test of a pixel at its threshold may flip
+            # with the rounding of the unprojection (FMAs on the card)
+            flip = (got[..., 0] == 400.0) != (want[..., 0] == 400.0)
+            share = flip.float().mean().item()
+            check(share <= 1e-4, f"tools: depth filter flips {share}")
+            lib["depth_filter_flip_share"] = share
+            got, want = got[~flip], want[~flip]
+        err = (got - want).abs().max().item()
+        # the same flow lands on the same pixels; the bilinear warp sums
+        # its 4 taps in another order
+        check(err <= (1e-5 if key == "backward" else 0.0),
+              f"tools: {key} card vs CPU {err}")
+        lib[f"{key}_max_abs_err"] = err
+    kept = (card["face"][..., 0] != 400.0).float().mean().item()
+    masks = InstanceMasks(
+        visualize._render_masks(Renderer(bank, image_size=FRAME), rots, trans,
+                                ks, labels))
+    check(masks.masks.shape == (TOOLS_OBJECTS, *FRAME)
+          and (masks.areas > 0).all(), "tools: InstanceMasks at 480x640")
+    rotated = masks.rotate(30.0)
+    lib.update(face_filter_kept_share=kept,
+               instance_masks=dict(areas=masks.areas.tolist(),
+                                   rotated_areas=rotated.areas.tolist()))
+    emit(phase="tools", frame=list(FRAME), objects=TOOLS_OBJECTS,
+         vistool=vis, vistool_launches={k: list(v) for k, v in launches.items()},
+         draw_pose_contour_launches=list(contour_counts),
+         tool_mains_s=tools_s, pngs=len(pngs), library=lib,
+         phase_seconds=time.perf_counter() - t_phase)
+    launches["draw_pose_contour"] = contour_counts
+    return launches
+
+
+def run_phase(name: str, fn, *args):
+    """Run one phase and print its seconds on a line of its own."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    emit(phase="seconds", of=name, seconds=time.perf_counter() - t0)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2944,8 +3575,8 @@ def main() -> int:
     renderer = Renderer(bank, image_size=SIZE)
     with torch.inference_mode():
         batch = make_batch(renderer, BATCH, seed=0)
-        k1_row = phase_k1(renderer, batch)
-        fwd_rows = phase_k2()
+        k1_row = run_phase("k1", phase_k1, renderer, batch)
+        fwd_rows = run_phase("k2", phase_k2)
 
     model = build_model(cfg, device="cuda", seed=0)
     step = make_eval_step(model, renderer, cfg, device="cuda")
@@ -2981,8 +3612,8 @@ def main() -> int:
                      "translation_max_abs_err": t_diff.max().item(),
                      "cpu_seconds": cpu_s, **POSE_TOL})
 
-    phase_profile(model, renderer, cfg, step, batch)
-    phase_sync(step, batch, bank)
+    run_phase("profile", phase_profile, model, renderer, cfg, step, batch)
+    run_phase("sync", phase_sync, step, batch, bank)
 
     full_cfg = Config(model=ModelConfig(num_class=NUM_CLASS, iters=ITERS,
                                         test_iters=ITERS, lowres_eval=False))
@@ -2997,19 +3628,25 @@ def main() -> int:
          seconds_total=time.perf_counter() - t_start)
     del model, step, cpu_model
 
-    bwd_rows = phase_k2_bwd()
-    train, train_ms = phase_train(bank)
-    trainer = phase_trainer(train_ms)
-    bf16 = phase_bf16(renderer, batch, cpu_out, gpu_out)
-    train_bf16 = phase_train_bf16(bank)
-    raft = phase_raft(renderer, batch)
-    raft_train = phase_raft_train(bank)
-    *eval_bop, eval_results = phase_eval_bop()
-    pose_graph = phase_pose_graph(eval_results)
-    train_bop = phase_train_bop(train_ms, smi)
-    train_pbr = phase_train_pbr(train_ms, smi)
-    parallel = phase_parallel(bank)
-    options, bare_row = phase_options(bank, renderer, batch)
+    bwd_rows = run_phase("k2_bwd", phase_k2_bwd)
+    train, train_ms = run_phase("train", phase_train, bank)
+    trainer = run_phase("trainer", phase_trainer, train_ms)
+    bf16 = run_phase("bf16", phase_bf16, renderer, batch, cpu_out, gpu_out)
+    train_bf16 = run_phase("train_bf16", phase_train_bf16, bank)
+    raft = run_phase("raft", phase_raft, renderer, batch)
+    raft_train = run_phase("raft_train", phase_raft_train, bank)
+    *eval_bop, eval_results = run_phase("eval_bop", phase_eval_bop)
+    pose_graph = run_phase("pose_graph", phase_pose_graph, eval_results)
+    train_bop = run_phase("train_bop", phase_train_bop, train_ms, smi)
+    train_pbr = run_phase("train_pbr", phase_train_pbr, train_ms, smi)
+    parallel = run_phase("parallel", phase_parallel, bank)
+    options, bare_row = run_phase("options", phase_options, bank, renderer, batch)
+    # every old path ran K2's vector form only (reset_counts checks it);
+    # the new phases read the general and cluster forms' launches
+    plane_rows, plane_checks = run_phase("k2_planes", phase_k2_planes)
+    backbone = run_phase("backbone", phase_backbone)
+    image_size = run_phase("image_size", phase_image_size, bank)
+    tools = run_phase("tools", phase_tools, bank)
     emit(phase="done", seconds_total=time.perf_counter() - t_start)
 
     # ``launches``: the row's own path (f32 or bf16); beside it every
@@ -3025,19 +3662,47 @@ def main() -> int:
     def by_path(i, names):
         return {p: paths[p][i] for p in names}
 
+    # the new phases' paths beside the old ones: K1's two forms, and the
+    # K2 vector form's share of each (its launches less the general form's)
+    new_paths = {**backbone, **{p: (*c, f) for p, (c, f) in
+                                 image_size.items()}}
+    form_paths = {p: v[3] for p, v in new_paths.items()}
+
+    def other_forms(f, d):
+        return sum(f[f"{d}.{form}.{dt}"] for form in ("general", "cluster")
+                   for dt in ("f32", "bf16"))
+
+    for p, (k1, k2, k2b, f) in new_paths.items():
+        paths[p] = (k1, k2 - other_forms(f, "fwd"), k2b - other_forms(f, "bwd"))
+    paths.update({p: (k1 - bare, k2, k2b)
+                  for p, (k1, k2, k2b, bare) in tools.items()})
+    bare_row["launches_by_path"].update({p: v[3] for p, v in tools.items()})
     k1_row.update(launches=main_run["k1"], launches_by_path=by_path(0, paths))
     fwd_rows[0].update(launches=main_run["k2"], launches_by_path=by_path(
         1, ("main", "raft", "train", "trainer", "raft_train", "eval_bop",
             "train_bop", "train_pbr", "pose_graph", "parallel", "options_a",
-            "small", "raft_small", "options_train")))
+            "small", "raft_small", "options_train", *new_paths)))
     fwd_rows[1].update(launches=bf16[1], launches_by_path=by_path(
         1, ("bf16", "train_bf16")))
     bwd_rows[0].update(launches=train[2], launches_by_path=by_path(
         2, ("train", "trainer", "raft_train", "train_bop", "train_pbr",
-            "parallel", "options_train")))
+            "parallel", "options_train", "backbone_plain_train",
+            "backbone_v1d_train", "image_size_train")))
     bwd_rows[1].update(launches=train_bf16[2],
                        launches_by_path=by_path(2, ("train_bf16",)))
-    rows = [k1_row, bare_row, *fwd_rows, *bwd_rows]
+    # K2's general and cluster forms per dtype: launches on the new paths
+    # as the wrappers counted them (every old path launched the vector form
+    # only: reset_counts checks it), and in k2_planes' checks
+    for row in plane_rows:
+        d = "fwd" if row["name"].startswith("instance_norm_fwd") else "bwd"
+        key = f"{d}.{row.pop('form')}.{row.pop('dtype')}"
+        per_path = {p: f[key] for p, f in form_paths.items()}
+        per_path["every_other_path"] = 0
+        own = ("backbone_plain_train" if "general" in key
+               else "image_size_train")
+        row.update(launches=per_path[own], launches_by_path=per_path,
+                   check_launches=plane_checks[key])
+    rows = [k1_row, bare_row, *fwd_rows, *bwd_rows, *plane_rows]
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

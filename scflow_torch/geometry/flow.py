@@ -102,3 +102,61 @@ def endpoint_error(flow_pred: torch.Tensor, flow_gt: torch.Tensor,
     return {"epe": mean(err), "acc1": mean((err < 1.0).to(err.dtype)),
             "acc3": mean((err < 3.0).to(err.dtype)),
             "acc5": mean((err < 5.0).to(err.dtype))}
+
+
+def coords_from_flow(flow: torch.Tensor) -> torch.Tensor:
+    """Absolute target coordinates (..., H, W, 2): the pixel grid plus the
+    flow (reference flow.py:90-103)."""
+    h, w = flow.shape[-3:-1]
+    return pixel_grid(h, w, flow.dtype, flow.device) + flow
+
+
+def _landing_index(flow: torch.Tensor) -> torch.Tensor:
+    """Flat index (..., H·W) of the pixel each flow vector lands on: the
+    nearest by ``round`` (half to even), clipped to the frame."""
+    h, w = flow.shape[-3:-1]
+    target = coords_from_flow(flow)
+    tx = torch.round(target[..., 0]).long().clamp(0, w - 1)
+    ty = torch.round(target[..., 1]).long().clamp(0, h - 1)
+    return (ty * w + tx).reshape(ty.shape[:-2] + (h * w,))
+
+
+def _gather_landed(image: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    h, w = image.shape[-2:]
+    flat = image.reshape(image.shape[:-2] + (h * w,))
+    return flat.gather(-1, idx).reshape(image.shape)
+
+
+def filter_flow_by_depth(flow: torch.Tensor, depth_src: torch.Tensor,
+                         depth_target: torch.Tensor, k: torch.Tensor,
+                         rotation_src: torch.Tensor,
+                         translation_src: torch.Tensor,
+                         rotation_target: torch.Tensor,
+                         translation_target: torch.Tensor,
+                         consistency_thr: float = 0.05,
+                         invalid_num: float = DEFAULT_INVALID_FLOW
+                         ) -> torch.Tensor:
+    """Keep a flow vector (..., H, W, 2) only where the source pixel's
+    object point, moved into the target camera, has a depth within
+    ``consistency_thr`` (relative) of the target render's depth at the
+    landing pixel (reference models/utils/flow.py:28-45); depths
+    (..., H, W), k (..., 3, 3), poses (..., 3, 3) and (..., 3)."""
+    _, pts_obj = unproject_depth(depth_src, k, rotation_src, translation_src)
+    z_in_target = ((rotation_target[..., None, None, 2, :] * pts_obj).sum(-1)
+                   + translation_target[..., 2][..., None, None])
+    sampled = _gather_landed(depth_target, _landing_index(flow))
+    rel_err = (sampled - z_in_target).abs() / z_in_target.clamp_min(1e-6)
+    ok = (depth_src > 0) & (sampled > 0) & (rel_err < consistency_thr)
+    return torch.where(ok[..., None], flow, invalid_num)
+
+
+def filter_flow_by_face_index(flow: torch.Tensor, face_id_src: torch.Tensor,
+                              face_id_target: torch.Tensor,
+                              invalid_num: float = DEFAULT_INVALID_FLOW
+                              ) -> torch.Tensor:
+    """Keep flow only where the source and the landing pixel see the same
+    mesh face (reference models/utils/flow.py:47-59); face ids (..., H, W)
+    integers, -1 for background."""
+    landed = _gather_landed(face_id_target, _landing_index(flow))
+    ok = (face_id_src >= 0) & (landed == face_id_src)
+    return torch.where(ok[..., None], flow, invalid_num)

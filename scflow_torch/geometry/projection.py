@@ -69,3 +69,33 @@ def depth_to_correspondences(depth: torch.Tensor, k: torch.Tensor,
     pts_2d = pixel_grid(h, w, depth.dtype, depth.device).expand(
         depth.shape[:-2] + (h, w, 2))
     return pts_2d, pts_obj, depth > 0
+
+
+def bilinear_sample(img: torch.Tensor, coords: torch.Tensor, *,
+                    padding_zero: bool = True) -> torch.Tensor:
+    """Bilinearly sample ``img`` (..., C, H, W) at pixel coordinates
+    ``coords`` (..., P, 2) in xy order → (..., C, P).
+
+    Pixel centres at integer coordinates (grid_sample's align_corners=True,
+    reference models/utils/corr_lookup.py:31-67). A tap outside the frame
+    reads 0 with ``padding_zero``, else the nearest edge pixel."""
+    h, w = img.shape[-2:]
+    x, y = coords[..., 0], coords[..., 1]
+    x0, y0 = torch.floor(x), torch.floor(y)
+    wx, wy = (x - x0)[..., None, :], (y - y0)[..., None, :]
+    x0i, y0i = x0.long(), y0.long()
+    flat = img.reshape(img.shape[:-2] + (h * w,))
+
+    def tap(yi, xi):
+        idx = yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)
+        val = flat.gather(-1, idx[..., None, :].expand(
+            idx.shape[:-1] + (flat.shape[-2], idx.shape[-1])))
+        if padding_zero:
+            inb = (yi >= 0) & (yi <= h - 1) & (xi >= 0) & (xi <= w - 1)
+            val = torch.where(inb[..., None, :], val, 0.0)
+        return val
+
+    v00, v01 = tap(y0i, x0i), tap(y0i, x0i + 1)
+    v10, v11 = tap(y0i + 1, x0i), tap(y0i + 1, x0i + 1)
+    return ((1 - wy) * ((1 - wx) * v00 + wx * v01)
+            + wy * ((1 - wx) * v10 + wx * v11))

@@ -31,6 +31,30 @@ def quaternion_to_matrix(quat: torch.Tensor) -> torch.Tensor:
     return m.reshape(quat.shape[:-1] + (3, 3))
 
 
+def matrix_to_quaternion(m: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) rotation matrices → (..., 4) xyzw quaternions.
+
+    Branch-free Shepperd's method: all four candidate constructions, one
+    per pivot (w, x, y, z), and the one of the largest pivot taken (the
+    first on a tie, as ``argmax``), then normalised."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+    pivots = torch.stack([1.0 + tr, 1.0 + m00 - m11 - m22,
+                          1.0 - m00 + m11 - m22, 1.0 - m00 - m11 + m22], -1)
+    cands = torch.stack([
+        torch.stack([m21 - m12, m02 - m20, m10 - m01, pivots[..., 0]], -1),
+        torch.stack([pivots[..., 1], m01 + m10, m02 + m20, m21 - m12], -1),
+        torch.stack([m01 + m10, pivots[..., 2], m12 + m21, m02 - m20], -1),
+        torch.stack([m02 + m20, m12 + m21, pivots[..., 3], m10 - m01], -1),
+    ], -2) / (2.0 * torch.sqrt(pivots.clamp_min(_EPS)))[..., None]
+    choice = pivots.argmax(-1)
+    q = cands.gather(-2, choice[..., None, None].expand(
+        choice.shape + (1, 4)))[..., 0, :]
+    return normalize(q)
+
+
 def ortho6d_to_matrix(ortho6d: torch.Tensor) -> torch.Tensor:
     """Gram-Schmidt a (..., 6) rotation rep into (..., 3, 3); columns x, y, z."""
     x = normalize(ortho6d[..., 0:3])
@@ -55,6 +79,30 @@ def axis_angle_to_matrix(axis_angle: torch.Tensor) -> torch.Tensor:
     ], dim=-1).reshape(axis_angle.shape[:-1] + (3, 3))
     eye = torch.eye(3, dtype=m.dtype, device=m.device).expand(m.shape)
     return torch.where(angle[..., None] < _EPS, eye, m)
+
+
+def matrix_to_ortho6d(m: torch.Tensor) -> torch.Tensor:
+    """The first two columns of (..., 3, 3), flattened to (..., 6)."""
+    return torch.cat([m[..., :, 0], m[..., :, 1]], dim=-1)
+
+
+def matrix_to_axis_angle(m: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) rotation matrices → (..., 3) axis-angle vectors (the
+    angle in [0, π], through :func:`matrix_to_quaternion`)."""
+    q = matrix_to_quaternion(m)
+    xyz, w = q[..., :3], q[..., 3]
+    n = torch.linalg.vector_norm(xyz, dim=-1)
+    angle = 2.0 * torch.atan2(n, w.abs())
+    sign = torch.where(w < 0, -1.0, 1.0)
+    return xyz * (sign / n.clamp_min(_EPS) * angle)[..., None]
+
+
+def rotation_angle_deg(r1: torch.Tensor, r2: torch.Tensor) -> torch.Tensor:
+    """Geodesic angle in degrees between two batches of rotation matrices
+    (reference datasets/pose.py:106-112)."""
+    rel = (r1[..., :, :, None] * r2.transpose(-1, -2)[..., None, :, :]).sum(-2)
+    cos = 0.5 * (rel.diagonal(dim1=-2, dim2=-1).sum(-1) - 1.0)
+    return torch.rad2deg(torch.arccos(cos.clamp(-1.0, 1.0)))
 
 
 def random_rotation(generator: torch.Generator,

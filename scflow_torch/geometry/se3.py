@@ -5,7 +5,8 @@ from __future__ import annotations
 
 import torch
 
-from .rotation import ortho6d_to_matrix, quaternion_to_matrix
+from .rotation import (ortho6d_to_matrix, quaternion_to_matrix,
+                       rotation_angle_deg)
 
 
 def matmul3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -54,6 +55,31 @@ def compose_delta_pose(rotation_delta: torch.Tensor,
     vx = vz_xy * (dx / weight + tx / tz)
     vy = vz_xy * (dy / weight + ty / tz)
     return rotation_dst, torch.stack([vx, vy, vz], dim=-1)
+
+
+def invert_pose(rotation: torch.Tensor, translation: torch.Tensor):
+    """Inverse of p → R p + t: (Rᵀ, −Rᵀ t)."""
+    r_inv = rotation.transpose(-1, -2)
+    return r_inv, -matvec3(r_inv, translation)
+
+
+def relative_pose(r_a: torch.Tensor, t_a: torch.Tensor, r_b: torch.Tensor,
+                  t_b: torch.Tensor):
+    """The pose taking frame-b coordinates to frame a:
+    (R_a R_bᵀ, t_a − R_a R_bᵀ t_b)."""
+    r_rel = matmul3(r_a, r_b.transpose(-1, -2))
+    return r_rel, t_a - matvec3(r_rel, t_b)
+
+
+def translation_error(t1: torch.Tensor, t2: torch.Tensor) -> torch.Tensor:
+    """Euclidean translation error (reference datasets/pose.py:114-119)."""
+    return torch.linalg.vector_norm(t1 - t2, dim=-1)
+
+
+def pose_error(r_pred: torch.Tensor, t_pred: torch.Tensor, r_gt: torch.Tensor,
+               t_gt: torch.Tensor):
+    """(rotation angle in degrees, translation distance)."""
+    return rotation_angle_deg(r_pred, r_gt), translation_error(t_pred, t_gt)
 
 
 def add_error(r_pred: torch.Tensor, t_pred: torch.Tensor, r_gt: torch.Tensor,

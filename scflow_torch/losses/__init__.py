@@ -128,6 +128,23 @@ def disentangled_point_matching_loss(pred_r, pred_t, gt_r, gt_t, points,
     return (loss_rot + loss_trans) / diameters
 
 
+def rot_point_matching_loss(pred_r, gt_r, points, point_valid, symmetric,
+                            diameters, loss_type: str = "l1"):
+    """Rotation-only point matching, (N,) per sample, normalised by the
+    diameter: the points rotated by the predicted and the GT rotation, no
+    translation; symmetric classes matched to the nearest point
+    (reference RotPointMatchingLoss, point_matching_loss.py:222-291)."""
+    ord_ = 1 if loss_type == "l1" else 2
+    pred = matvec3(pred_r[:, None], points)
+    target = matvec3(gt_r[:, None], points)
+    matched = _nearest_match(target, pred, point_valid)
+    pred_use = torch.where(symmetric[:, None, None], matched, pred)
+    dist = _norm(pred_use - target, ord_)
+    w = point_valid.to(dist.dtype)
+    mean = (dist * w).sum(-1) / w.sum(-1).clamp_min(1.0)
+    return mean / diameters
+
+
 def _batch_mean(per_sample: torch.Tensor, sample_weight) -> torch.Tensor:
     if sample_weight is None:
         return per_sample.mean() / world_size()

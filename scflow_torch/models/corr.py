@@ -102,3 +102,26 @@ def corr_lookup(pyramid: list[torch.Tensor], flow: torch.Tensor,
             samp = samp + row * wy[:, None, :]                  # (B, Kx, Ky)
         out.append(samp.reshape(n, h * w, k * k))
     return torch.cat(out, dim=-1).transpose(1, 2).reshape(n, -1, h, w)
+
+
+def local_correlation(feat1: torch.Tensor, feat2: torch.Tensor,
+                      max_displacement: int = 4,
+                      normalize: bool = True) -> torch.Tensor:
+    """Windowed correlation of two (N, C, H, W) feature maps → (N, (2r+1)²,
+    H, W), r = ``max_displacement``: channel (dy, dx), row-major over
+    [-r, r]², holds Σ_c feat1[p]·feat2[p + (dy, dx)] / √C, zero past the
+    frame (the mmcv ``Correlation`` op of the reference's ``CorrBlock``,
+    models/utils/corr_block.py:9-109; unused by the shipped configs).
+    ``normalize`` first divides each pixel's features by their L2 norm
+    plus 1e-6."""
+    if normalize:
+        feat1 = feat1 / (torch.linalg.vector_norm(feat1, dim=1, keepdim=True)
+                         + 1e-6)
+        feat2 = feat2 / (torch.linalg.vector_norm(feat2, dim=1, keepdim=True)
+                         + 1e-6)
+    _, c, h, w = feat1.shape
+    r = max_displacement
+    pad = F.pad(feat2, (r, r, r, r))
+    out = [(feat1 * pad[:, :, r + dy:r + dy + h, r + dx:r + dx + w]).sum(1)
+           for dy in range(-r, r + 1) for dx in range(-r, r + 1)]
+    return torch.stack(out, dim=1) / math.sqrt(c)

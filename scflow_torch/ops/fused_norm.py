@@ -12,15 +12,20 @@ CPU tensors.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
 
 from . import _build
 
-# one plane lives in shared memory as f32 (227 KB per block on Hopper)
-MAX_PLANE = 56 * 1024
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernels' forms by the code their entry reports: it picks the vector
+# form (one CTA per plane, 16-byte vectors), the general form (scalar
+# accesses, any plane) or the cluster form (a plane over 2-8 CTAs) from
+# the plane's size and the pointers (``csrc/instance_norm.cu``); code 3 is
+# the general form with the part of a plane past a cluster's streamed
+_FORMS = ("vector", "general", "cluster", "general")
 
 
 def _stats_dtype(x: torch.Tensor) -> torch.dtype:
@@ -71,16 +76,25 @@ def _kernel_entry(name: str, argtypes: list):
 
 
 def _check_plane(x: torch.Tensor, what: str) -> None:
+    """Device, type, rank and contiguity: the kernels take every plane
+    size and every element-aligned base."""
     if x.device.type != "cuda":
         raise ValueError(f"{what} needs a CUDA tensor, got {x.device}")
     if x.dim() != 4 or x.dtype not in _DTYPES or not x.is_contiguous():
         raise ValueError(f"expected contiguous 4-D f32/bf16 NCHW input, got "
                          f"{x.dtype} {tuple(x.shape)}")
-    hw = x.shape[2] * x.shape[3]
-    if hw % 8 or hw > MAX_PLANE or x.data_ptr() % 16:
-        raise ValueError(f"plane {x.shape[2]}x{x.shape[3]} not a 16-byte-"
-                         f"aligned multiple of 8 elements of at most "
-                         f"{MAX_PLANE}")
+
+
+def _count(fn, code: int, dtype: torch.dtype) -> None:
+    """One launch of ``fn`` of the form its entry reported: ``launches``,
+    and ``form_launches[form, dtype]`` with form ``vector``, ``general``
+    or ``cluster`` and dtype ``f32`` or ``bf16``; a general-form launch
+    that streamed also counts under ``("streamed", dtype)``."""
+    dt = "bf16" if dtype == torch.bfloat16 else "f32"
+    fn.launches += 1
+    fn.form_launches[_FORMS[code], dt] += 1
+    if code == 3:
+        fn.form_launches["streamed", dt] += 1
 
 
 def _check_channel_vectors(x: torch.Tensor, *vs: torch.Tensor) -> None:
@@ -105,18 +119,21 @@ def instance_norm_fwd(x: torch.Tensor, scale: torch.Tensor,
     _check_channel_vectors(x, scale, bias)
     n, c, h, w = x.shape
     y = torch.empty_like(x)
+    form = ctypes.c_int(-1)
     p, i = ctypes.c_void_p, ctypes.c_int
     err = _kernel_entry("scflow_instance_norm_fwd",
-                        [p, p, p, p, i, i, i, ctypes.c_float, i, p])(
+                        [p, p, p, p, i, i, i, ctypes.c_float, i,
+                         ctypes.POINTER(i), p])(
         x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
-        n * c, c, h * w, eps, _DTYPES[x.dtype],
+        n * c, c, h * w, eps, _DTYPES[x.dtype], ctypes.byref(form),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "instance_norm_fwd")
-    instance_norm_fwd.launches += 1
+    _count(instance_norm_fwd, form.value, x.dtype)
     return y
 
 
 instance_norm_fwd.launches = 0
+instance_norm_fwd.form_launches = collections.Counter()
 
 
 def instance_norm_bwd(x: torch.Tensor, g: torch.Tensor, scale: torch.Tensor,
@@ -135,19 +152,22 @@ def instance_norm_bwd(x: torch.Tensor, g: torch.Tensor, scale: torch.Tensor,
     part = torch.empty(2, n * c, device=x.device, dtype=torch.float32)
     dscale = torch.empty(c, device=x.device, dtype=torch.float32)
     dbias = torch.empty_like(dscale)
+    form = ctypes.c_int(-1)
     p, i = ctypes.c_void_p, ctypes.c_int
     err = _kernel_entry("scflow_instance_norm_bwd",
-                        [p, p, p, p, p, p, p, i, i, i, ctypes.c_float, i, p])(
+                        [p, p, p, p, p, p, p, i, i, i, ctypes.c_float, i,
+                         ctypes.POINTER(i), p])(
         x.data_ptr(), g.data_ptr(), scale.data_ptr(), dx.data_ptr(),
         part.data_ptr(), dscale.data_ptr(), dbias.data_ptr(), n * c, c,
-        h * w, eps, _DTYPES[x.dtype],
+        h * w, eps, _DTYPES[x.dtype], ctypes.byref(form),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "instance_norm_bwd")
-    instance_norm_bwd.launches += 1
+    _count(instance_norm_bwd, form.value, x.dtype)
     return dx, dscale, dbias
 
 
 instance_norm_bwd.launches = 0
+instance_norm_bwd.form_launches = collections.Counter()
 
 
 class _InstanceNorm(torch.autograd.Function):
@@ -169,10 +189,8 @@ class _InstanceNorm(torch.autograd.Function):
             dx, dscale, dbias = instance_norm_bwd_reference(x, g, scale,
                                                             ctx.eps)
         else:
-            g = g.contiguous()
-            if g.data_ptr() % 16:
-                g = g.clone()
-            dx, dscale, dbias = instance_norm_bwd(x, g, scale, ctx.eps)
+            dx, dscale, dbias = instance_norm_bwd(x, g.contiguous(), scale,
+                                                  ctx.eps)
         return dx, dscale, dbias, None
 
 

@@ -12,7 +12,9 @@ is the convex-upsample weight head (flax ``up_mask_head``, Basic net only)
 and ``decoder.occlusion_pred`` the occlusion head (``occ_head``); it has
 no pose head. A ``separate_encoder`` model's ``real_encoder`` is the flax
 ``real_encoder``; the widths of every ``net_type`` and the 4-row
-quaternion pose head map as they are.
+quaternion pose head map as they are. A ``ResNet`` backbone
+(``models/backbone.py``) maps to flax's ``stem``/``stem{i}`` and
+``layer{s}_block{b}`` ConvBlocks.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .models.backbone import ResNet
 from .models.layers import FusedInstanceNorm
 from .models.refiner import RAFTRefiner
 
@@ -61,12 +64,27 @@ _RAFT_RULES = [(re.compile(p), r) for p, r in (
     (r"decoder\.occlusion_pred\.predict_layer", rf"{_IT}/occ_head/predict"),
 )]
 _FC0 = "decoder.pose_pred.fc_layers.0.0"
+# the general ResNet backbone (models/backbone.py): flax's stem, stem{i},
+# layer{s}_block{b}/conv{j} and downsample ConvBlocks
+_RESNET_RULES = [(re.compile(p), r) for p, r in (
+    (r"conv1", "stem/conv"),
+    (r"(?:bn|in|gn)1", "stem/norm"),
+    *((rf"stem\.{3 * i}", f"stem{i}/conv") for i in range(3)),
+    *((rf"stem\.{3 * i + 1}", f"stem{i}/norm") for i in range(3)),
+    (r"layer(\d)\.(\d+)\.conv(\d)", r"layer\1_block\2/conv\3/conv"),
+    (r"layer(\d)\.(\d+)\.(?:bn|in|gn)(\d)", r"layer\1_block\2/conv\3/norm"),
+    (r"layer(\d)\.(\d+)\.downsample\.0", r"layer\1_block\2/downsample/conv"),
+    (r"layer(\d)\.(\d+)\.downsample\.1", r"layer\1_block\2/downsample/norm"),
+)]
 
 
-def jax_path(module_name: str, raft: bool = False) -> str | None:
+def jax_path(module_name: str, raft: bool = False,
+             resnet: bool = False) -> str | None:
     """Flax path ('a/b/c') of the port module named ``module_name`` in an
-    SCFlow refiner, or with ``raft`` in a RAFT refiner."""
-    for pattern, repl in (_RAFT_RULES if raft else []) + _RULES:
+    SCFlow refiner, with ``raft`` in a RAFT refiner, with ``resnet`` in a
+    ``ResNet``."""
+    rules = _RESNET_RULES if resnet else (_RAFT_RULES if raft else []) + _RULES
+    for pattern, repl in rules:
         if pattern.fullmatch(module_name):
             return pattern.sub(repl, module_name)
     return None
@@ -84,7 +102,7 @@ def _flatten(tree: dict, prefix: str = "") -> dict:
 
 
 def load_jax_variables(model: nn.Module, variables: dict) -> None:
-    """Fill ``model`` (an ``SCFlowRefiner`` or ``RAFTRefiner``) from flax
+    """Fill ``model`` (an ``SCFlowRefiner``, ``RAFTRefiner`` or ``ResNet``) from flax
     ``variables`` in place. Raises if a port tensor gets no value, a flax leaf goes unused,
     or a shape disagrees."""
     params = _flatten(variables.get("params", {}))
@@ -97,11 +115,12 @@ def load_jax_variables(model: nn.Module, variables: dict) -> None:
 
     loaded = {}
     raft = isinstance(model, RAFTRefiner)
+    resnet = isinstance(model, ResNet)
     for name, m in model.named_modules():
         if not isinstance(m, (nn.Conv2d, nn.Linear, nn.BatchNorm2d,
                               nn.GroupNorm, FusedInstanceNorm)):
             continue
-        path = jax_path(name, raft)
+        path = jax_path(name, raft, resnet)
         if path is None:
             raise KeyError(f"no flax path for port module {name!r}")
         vals = {}
@@ -162,11 +181,12 @@ def to_jax_variables(model: nn.Module, grad: bool = False) -> dict:
     must all be set). ``batch_stats`` are the BN running statistics."""
     params, stats = {}, {}
     raft = isinstance(model, RAFTRefiner)
+    resnet = isinstance(model, ResNet)
     for name, m in model.named_modules():
         if not isinstance(m, (nn.Conv2d, nn.Linear, nn.BatchNorm2d,
                               nn.GroupNorm, FusedInstanceNorm)):
             continue
-        path = jax_path(name, raft)
+        path = jax_path(name, raft, resnet)
         if path is None:
             raise KeyError(f"no flax path for port module {name!r}")
 

@@ -11,7 +11,8 @@ import pytest
 import torch
 
 from scflow_torch.ops import rasterize_fast as rf
-from scflow_torch.ops.fused_norm import (instance_norm, instance_norm_bwd,
+from scflow_torch.ops.fused_norm import (instance_norm,
+                                         instance_norm_bwd,
                                          instance_norm_bwd_reference,
                                          instance_norm_fwd,
                                          instance_norm_reference)
@@ -57,13 +58,13 @@ def test_instance_norm_kernel(dev, dtype, c, hw):
 
 
 def test_instance_norm_kernel_refuses(dev):
+    """Only the layout, type and device: every plane size is taken."""
     x, scale, bias = norm_inputs(dev, 8, 16)
-    for bad in (x.transpose(2, 3), x.half(), x[:, :, :5, :5].contiguous()):
+    for bad in (x.transpose(2, 3), x.half(), x[0], x.cpu()):
         with pytest.raises(ValueError):
             instance_norm_fwd(bad, scale, bias)
     with pytest.raises(ValueError):
-        instance_norm_fwd(torch.zeros(1, 1, 256, 256, device=dev), scale[:1],
-                          bias[:1])
+        instance_norm_fwd(x, scale[:4], bias[:4])
 
 
 def assert_bwd_close(got, want, x, g):
@@ -127,12 +128,81 @@ def test_instance_norm_bwd_kernel_refuses(dev):
     g = torch.randn_like(x)
     for bx, bg in ((x, g.transpose(2, 3)), (x, g.bfloat16()),
                    (x.half(), g.half()), (x, g[:1].contiguous()),
-                   (x[:, :, :5, :5].contiguous(), g[:, :, :5, :5].contiguous()),
                    (x.cpu(), g.cpu())):
         with pytest.raises(ValueError):
             instance_norm_bwd(bx, bg, scale)
     with pytest.raises(ValueError):
         instance_norm_bwd(x, g, scale[:4])
+
+
+# planes the JAX function takes beside the encoders': ResNet-50's at 224²
+# (7², 14², 28²), odd ones, one element, planes larger than one CTA's
+# shared memory (the 240² and 256² stems of 480- and 512-pixel crops, the
+# half-resolution plane of a 480×640 frame: the cluster form) and one
+# larger than a cluster's (streamed)
+# the kernel's documented limits: one CTA stages at most 57,344 f32
+# elements; a cluster of 8 CTAs at most 8 times that
+ONE_CTA_PLANE, CLUSTER_PLANE = 56 * 1024, 8 * 56 * 1024
+ANY_PLANES = [(2, 64, 7, 7), (2, 32, 14, 14), (2, 16, 28, 28), (3, 5, 13, 17),
+              (2, 3, 1, 1), (1, 2, 5, 5), (1, 3, 240, 240), (1, 2, 256, 256),
+              (1, 2, 240, 320), (1, 1, 700, 700)]
+
+
+def offset_view(t, offset):
+    """``t``'s values in a contiguous view whose storage starts ``offset``
+    elements into a fresh buffer (a base that is not 16-byte aligned)."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", ANY_PLANES)
+def test_instance_norm_kernel_any_plane(dev, dtype, shape, offset):
+    """Forward and backward kernels at every plane size and base: the
+    vector form where it applies, the cluster form for planes past one
+    CTA's shared memory, else the general form (streamed past a
+    cluster's), counted by form and dtype, within the encoders' bounds."""
+    n, c, h, w = shape
+    gen = torch.Generator().manual_seed(h * w + offset)
+    x = offset_view((torch.randn(shape, generator=gen) * 2 + 0.5).to(dev, dtype),
+                    offset)
+    g = offset_view(torch.randn(shape, generator=gen).to(dev, dtype), offset)
+    scale = (1 + 0.3 * torch.randn(c, generator=gen)).to(dev)
+    bias = (0.2 * torch.randn(c, generator=gen)).to(dev)
+    assert x.is_contiguous() and x.storage_offset() == offset
+    hw = h * w
+    cluster = ONE_CTA_PLANE < hw <= CLUSTER_PLANE
+    general = not cluster and (bool(offset) or hw % 8 != 0
+                               or hw > ONE_CTA_PLANE)
+    streamed = hw > CLUSTER_PLANE
+    vector = not (general or cluster)
+    dt = "f32" if dtype == torch.float32 else "bf16"
+    other = "bf16" if dtype == torch.float32 else "f32"
+
+    def by_form():
+        return [(fn.launches, *(fn.form_launches[f, d] for d in (dt, other)
+                                for f in ("vector", "general", "cluster",
+                                          "streamed")))
+                for fn in (instance_norm_fwd, instance_norm_bwd)]
+
+    before = by_form()
+    y = instance_norm_fwd(x, scale, bias)
+    got = instance_norm_bwd(x, g, scale)
+    torch.cuda.synchronize()
+    for now, was in zip(by_form(), before):
+        assert [a - b for a, b in zip(now, was)] == [
+            1, vector, general, cluster, streamed, 0, 0, 0, 0]
+    want = instance_norm_reference(x, scale, bias).float()
+    diff = (y.float() - want).abs()
+    if dtype == torch.float32:
+        assert (diff <= 1e-5 + 1e-5 * want.abs()).all(), diff.max()
+    else:
+        ulp = (want.abs().clamp_min(2.0 ** -126).log2().floor() - 7).exp2()
+        assert (diff <= 1e-5 + ulp).all(), diff.max()
+    assert_bwd_close(got, instance_norm_bwd_reference(x, g, scale), x, g)
 
 
 def scene_inputs(dev, n=8, classes=5, subdivisions=3, size=256, seed=0,
