@@ -155,19 +155,35 @@ Phases (each prints one JSON line; any failed check raises):
           fail that flow bound); the
           train step at batch 16 under A with ``remat`` (1 warm-up, 2
           steps, K1 1, K2 30 and 30), loss and gradient against the CPU.
+  k2_kernels  each K2 kernel's device ms under torch.profiler, taken by
+          this script run again as a process of its own
+          (``--k2-kernel-ms``, fresh profiler state): at every k2_planes
+          plane past the vector form and for the backbone's runs, each
+          trace checked against the wrappers' launches; beside it a canary
+          trace in this process, and the kernels it kept.
   k2_planes  K2 forward (eval batch) and backward (train batch) against
           their plain versions in f32 and bf16 at every plane the JAX
           function takes beside the encoders': ResNet-50's at 224² (7²,
-          14², 28²), 13×17, the 240² and 256² stems of 480- and 512-pixel
-          crops, 240×320, a view at storage offset 1, and 700² (past a
-          cluster: streamed); the form each takes (vector, general,
-          cluster), device time against the bound and F.instance_norm's,
-          at the k2 phases' tolerances.
+          14², 28²), 13×17, the warp form's cap (16×32 at offset 1) and
+          23² past it, the 240² and 256² stems of 480- and 512-pixel
+          crops, 240×320, a view at storage offset 1, 700² and 1024²
+          (past a cluster: the split form) and 700² of values 1e3 ± 1
+          (± 64 in bf16, whose step there is 4; against float64, within
+          what an f32 mean's rounding at 1e3 moves); the form each takes
+          (vector, warp, general, cluster, split), device time against the
+          bound and F.instance_norm's, each kernel's profiled ms past the
+          vector form (k2_kernels'), the bytes each form moves, at the k2
+          phases' tolerances.
   backbone  ResNet(depth=50, norm="in") at the reference widths, plain
           and V1d stems, batch 32 × 224², f32: K2 launches per forward (53
-          / 55) by form, forward time, peak memory, 2 samples against the
-          CPU port; one backward (K2 backward launches) and the gradient
-          of 2 samples against the CPU at train_parity's bound.
+          / 55) by form (28 on the warp form), forward time, K2's device
+          ms per kernel (k2_kernels'), peak memory, 2 samples against the
+          CPU port; one backward (K2 backward launches and device ms) and
+          the gradient
+          of 2 samples against the CPU at train_parity's bound; the plain
+          stem at 2 × 1400² (the 700² stem planes on the split form, 350²
+          cluster, 175² general): one forward, 1 sample against the CPU,
+          and one backward.
   image_size  ``scflow_torch.test.main --image-size 512`` on an 8-image
           tree written on the card (K1 1, K2 30 per packed batch, the
           256² planes on the cluster form; 2 images' poses against the CPU to
@@ -183,8 +199,9 @@ Phases (each prints one JSON line; any failed check raises):
           both flow filters at 32 × 256², InstanceMasks at 480×640.
 Each phase's seconds print on a ``{"phase": "seconds"}`` line. Then the
 ``kernels`` line (K1 and its no-attribute form, the K2 forward and
-backward in f32 and in bf16, and K2's general and cluster forms, each
-with its launches on every path), the card line from nvidia-smi and,
+backward in f32 and in bf16, and K2's warp, general, cluster and split
+forms in each, each with its launches on every path), the card line
+from nvidia-smi and,
 last, ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA
 GPU.
 """
@@ -282,24 +299,35 @@ SIL_TOL = 1e-4            # soft silhouette, card vs CPU (the CPU tests')
 # tie-breaks between its rasterizers (tests/test_render_modes.py)
 RASTER_MISMATCH = 1e-3
 # k2_planes: every plane the JAX instance_norm takes beside the encoders':
-# ResNet-50's at batch 32 × 224² (layer 4, 3, 2), an odd plane, the stems
-# of 480- and 512-pixel crops, the half-resolution plane of a 480×640
-# frame, a view whose storage starts one element into its buffer, and a
-# plane past a cluster's shared memory (streamed); (channels, height,
-# width, storage offset), forward at the eval batch, backward at the
-# train batch
-# the general form stages a plane's first 57,344 elements in shared memory
-# and streams the rest (``kMaxPlane`` in scflow_torch/ops/csrc/
-# instance_norm.cu): the bytes its streamed plane moves
-K2_STAGED = 56 * 1024
-K2_PLANES = ((2048, 7, 7, 0), (1024, 14, 14, 0), (512, 28, 28, 0),
-             (64, 13, 17, 0), (64, 240, 240, 0), (64, 256, 256, 0),
-             (64, 240, 320, 0), (96, 64, 64, 1), (4, 700, 700, 0))
+# ResNet-50's at batch 32 × 224² (layer 4, 3, 2), an odd plane, the warp
+# form's cap (16×32 at an offset: 512 elements) and the first plane past
+# it (23²), the stems of 480- and 512-pixel crops, the half-resolution
+# plane of a 480×640 frame, a view whose storage starts one element into
+# its buffer, planes past a cluster (700², 1024²: the split form) and 700²
+# of values 1e3 ± 1; (channels, height, width, storage offset, loc: values
+# loc ± 1, loc ± K2_BF16_SPREAD in bf16, else N(0.5, 2)), forward at the
+# eval batch, backward at the train batch
+K2_PLANES = ((2048, 7, 7, 0, 0.0), (1024, 14, 14, 0, 0.0),
+             (512, 28, 28, 0, 0.0), (64, 13, 17, 0, 0.0),
+             (64, 16, 32, 1, 0.0), (64, 23, 23, 0, 0.0),
+             (64, 240, 240, 0, 0.0), (64, 256, 256, 0, 0.0),
+             (64, 240, 320, 0, 0.0), (96, 64, 64, 1, 0.0),
+             (4, 700, 700, 0, 0.0), (2, 1024, 1024, 0, 0.0),
+             (4, 700, 700, 0, 1e3))
+# K2's forms past the vector form, as the wrappers count them; the split
+# form reads x twice forward, x and g twice backward
+K2_FORMS = ("general", "warp", "cluster", "split")
+# bf16's step at 1e3 is 4: 1e3 ± 1 would round to a constant plane (a
+# variance of 0, which checks nothing), 1e3 ± 64 keeps 33 distinct values
+K2_BF16_SPREAD = 64.0
 # backbone: ResNet-50 at the reference widths with instance norm; K2
 # launches per forward (16 bottlenecks × 3, 4 downsamples, the stem's 1
 # or the deep stem's 3)
 BACKBONE_BATCH, BACKBONE_SIZE, BACKBONE_REL = 32, 224, 1e-4
 BACKBONE_K2 = {False: 53, True: 55}
+# ResNet-50 on crops past ~1356² (the stem's plane past a cluster: the
+# split form; 350², 175² beside it: the cluster and general forms)
+BACKBONE_LARGE_BATCH, BACKBONE_LARGE_SIZE = 2, 1400
 # image_size: the eval CLI at 512² on an 8-image tree (1-3 objects each),
 # the train step at 480² at batch 4
 IMAGE_EVAL_SIZE, IMAGE_TRAIN_SIZE, IMAGE_TRAIN_BATCH = 512, 480, 4
@@ -375,12 +403,24 @@ def device_ms(fn, reps: int, trials: int = 5, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def placed_copy(t):
+    """A copy of ``t`` in a fresh buffer at ``t``'s storage offset, so that
+    its pointer's alignment (which picks K2's form) is ``t``'s."""
+    import torch
+
+    off = t.storage_offset()
+    buf = torch.empty(t.numel() + off, dtype=t.dtype, device=t.device)
+    view = buf[off:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 def cold_inputs(x):
-    """An endless cycle over copies of ``x`` that together span 4× the L2,
-    so each timed call reads its input from HBM, the memory whose rate
-    ``bound_ms`` holds it against."""
+    """An endless cycle over copies of ``x`` (at its storage offset) that
+    together span 4× the L2, so each timed call reads its input from HBM,
+    the memory whose rate ``bound_ms`` holds it against."""
     copies = max(2, math.ceil(4 * L2_BYTES / (x.numel() * x.element_size())))
-    return itertools.cycle([x] + [x.clone() for _ in range(copies - 1)])
+    return itertools.cycle([x] + [placed_copy(x) for _ in range(copies - 1)])
 
 
 def bf16_ulp(v):
@@ -504,25 +544,68 @@ def _kernel_rows(name: str, replaces: str, totals: dict) -> list:
     return rows
 
 
-def k2_fwd_check(x, scale, bias, what: str) -> float:
+def k2_norm64(x, g, scale, bias, shift=0.0, eps=1e-5):
+    """K2's forward and backward in float64 with each plane's mean moved by
+    ``shift``: y, dx, dscale, dbias."""
+    import torch
+
+    x64, g64 = x.double(), g.double()
+    mu = x64.mean((2, 3), keepdim=True) + shift
+    inv = torch.rsqrt(((x64 - mu) ** 2).mean((2, 3), keepdim=True) + eps)
+    xhat = (x64 - mu) * inv
+    s = scale.double()[:, None, None]
+    gs = g64 * s
+    dx = inv * (gs - gs.mean((2, 3), keepdim=True)
+                - xhat * (gs * xhat).mean((2, 3), keepdim=True))
+    return (xhat * s + bias.double()[:, None, None], dx,
+            (g64 * xhat).sum((0, 2, 3)), g64.sum((0, 2, 3)))
+
+
+def k2_near64(x, g, scale, bias) -> tuple:
+    """The float64 results and twice the most that moving each plane's mean
+    by ±δ moves them, δ = (⌈log2 H·W⌉ + 1)·2^-24·mean|x|: an f32 sum rounds
+    at most ⌈log2 n⌉ times along a pairwise path, each by 2^-24 of its
+    partial sum, and the division once more (1.2e-3 at 700² planes of 1e3
+    ± 1, whose variance is 1/3). The bound of planes of a large mean, where
+    an f32 mean's rounding moves y by more than 1e-5 (as in
+    tests/test_torch_port_kernels.py)."""
+    import torch
+
+    k = math.ceil(math.log2(x.shape[2] * x.shape[3])) + 1
+    delta = k * 2.0 ** -24 * x.double().abs().mean((2, 3), keepdim=True)
+    exact = k2_norm64(x, g, scale, bias)
+    moved = [k2_norm64(x, g, scale, bias, sign * delta) for sign in (1, -1)]
+    return exact, [2 * torch.maximum((p - e).abs(), (m - e).abs())
+                   for e, p, m in zip(exact, *moved)]
+
+
+def k2_fwd_check(x, scale, bias, what: str, large_mean: bool = False) -> float:
     """``instance_norm_fwd`` on ``x`` against its plain version: f32 within
     1e-5 + 1e-5·|y| (statistics summed in another order), bf16 within 1e-5
-    plus one bf16 rounding step. Raises past it; returns the max abs
-    error."""
+    plus one bf16 rounding step; with ``large_mean``, against float64
+    within that plus ``k2_near64``'s bound. Raises past it; returns the
+    max abs error."""
     import torch
 
     from scflow_torch.ops.fused_norm import (instance_norm_fwd,
                                              instance_norm_reference)
 
     y = instance_norm_fwd(x, scale, bias)
-    y_ref = instance_norm_reference(x, scale, bias)
+    if large_mean:
+        (y_ref, *_), (moved, *_) = k2_near64(x, torch.zeros_like(x), scale,
+                                             bias)
+        # the bound stays a small part of y, so it holds the kernel
+        check(moved.max().item() < 0.05 * y_ref.abs().mean().item(),
+              f"{what}: k2_near64's bound is no check at this plane")
+    else:
+        y_ref, moved = instance_norm_reference(x, scale, bias), 0.0
     torch.cuda.synchronize()
-    diff = (y.float() - y_ref.float()).abs()
+    diff = (y.double() - y_ref.double()).abs()
     err = diff.max().item()
     if x.dtype == torch.float32:
-        ok = bool((diff <= 1e-5 + 1e-5 * y_ref.abs()).all())
+        ok = bool((diff <= 1e-5 + 1e-5 * y_ref.abs() + moved).all())
     else:
-        ok = bool((diff <= 1e-5 + bf16_ulp(y_ref)).all())
+        ok = bool((diff <= 1e-5 + bf16_ulp(y_ref) + moved).all())
     check(ok, f"{what} {x.dtype} {tuple(x.shape)}: max err {err}")
     return err
 
@@ -594,16 +677,15 @@ def reset_counts(general_ok: bool = False) -> None:
 
 
 def form_counts() -> dict:
-    """K2's launches of its general form (of those, the streamed ones) and
-    its cluster form, forward and backward, per dtype, since the reset:
-    ``{"fwd.general.f32": n, ...}``, as the wrappers counted them."""
+    """K2's launches of each form past the vector form (``K2_FORMS``),
+    forward and backward, per dtype, since the reset: ``{"fwd.general.f32":
+    n, ...}``, as the wrappers counted them."""
     from scflow_torch.ops.fused_norm import instance_norm_bwd, instance_norm_fwd
 
     return {f"{name}.{form}.{dt}": fn.form_launches[form, dt]
             for name, fn in (("fwd", instance_norm_fwd),
                              ("bwd", instance_norm_bwd))
-            for form in ("general", "cluster", "streamed")
-            for dt in ("f32", "bf16")}
+            for form in K2_FORMS for dt in ("f32", "bf16")}
 
 
 def counts() -> tuple[int, int, int]:
@@ -717,41 +799,61 @@ def phase_profile(model, renderer, cfg, step, batch) -> None:
                        "ms_per_step": e.self_device_time_total / 1e3 / 2,
                        "calls_per_step": e.count / 2} for e in top])
 
-def k2_bwd_check(x, gy, scale, what: str) -> tuple[float, float]:
+def k2_bwd_check(x, gy, scale, what: str,
+                 large_mean: bool = False) -> tuple[float, float]:
     """``instance_norm_bwd`` against its plain version: dx as the forward
     (f32 within 1e-5 + 1e-5·|ref|, bf16 one rounding step more); dscale,
-    dbias within 1e-5 of the sums of their terms' magnitudes. Raises past
-    them; returns dx's max abs error and the sums' max relative one."""
+    dbias within 1e-5 of the sums of their terms' magnitudes; with
+    ``large_mean``, against float64 within those plus ``k2_near64``'s
+    bound. Raises past them; returns dx's max abs error and the sums' max
+    relative one."""
     import torch
 
     from scflow_torch.ops.fused_norm import (instance_norm_bwd,
                                              instance_norm_bwd_reference)
 
     dx, dscale, dbias = instance_norm_bwd(x, gy, scale)
-    want = instance_norm_bwd_reference(x, gy, scale)
+    if large_mean:
+        (_, *want), (_, *moved) = k2_near64(x, gy, scale, torch.zeros_like(
+            scale))
+        check(moved[0].max().item() < 0.05 * want[0].abs().mean().item()
+              and bool((moved[1] < 0.05 * want[1].abs().max()).all()),
+              f"{what}: k2_near64's bound is no check at this plane")
+    else:
+        want, moved = instance_norm_bwd_reference(x, gy, scale), (0.0,) * 3
     torch.cuda.synchronize()
-    ref = want[0].float()
-    diff = (dx.float() - ref).abs()
+    ref = want[0].double()
+    diff = (dx.double() - ref).abs()
     err = diff.max().item()
     if x.dtype == torch.float32:       # sums in another order
-        ok = bool((diff <= 1e-5 + 1e-5 * ref.abs()).all())
+        ok = bool((diff <= 1e-5 + 1e-5 * ref.abs() + moved[0]).all())
     else:            # f32 arithmetic's spread, then one bf16 rounding step
-        ok = bool((diff <= 1e-5 + bf16_ulp(ref)).all())
+        ok = bool((diff <= 1e-5 + bf16_ulp(ref) + moved[0]).all())
     check(ok, f"{what} {x.dtype} {tuple(x.shape)}: dx max err {err}")
     xf = x.float()
     mu = xf.mean((2, 3), keepdim=True)
     xhat = (xf - mu) * torch.rsqrt(
         (xf - mu).square().mean((2, 3), keepdim=True) + 1e-5)
     sum_err = 0.0
-    for got, ref_s, terms in ((dscale, want[1], gy.float() * xhat),
-                              (dbias, want[2], gy.float())):
-        mag = terms.abs().sum((0, 2, 3))
-        d = (got - ref_s).abs()
-        check(bool((d <= 1e-5 * mag).all()),
+    for got, ref_s, terms, extra in (
+            (dscale, want[1], gy.float() * xhat, moved[1]),
+            (dbias, want[2], gy.float(), moved[2])):
+        mag = terms.abs().sum((0, 2, 3)).double()
+        d = (got.double() - ref_s.double()).abs()
+        check(bool((d <= 1e-5 * mag + extra).all()),
               f"{what} {x.dtype} {tuple(x.shape)}: dscale/dbias err "
               f"{d.max().item()}")
         sum_err = max(sum_err, (d / mag).max().item())
     return err, sum_err
+
+
+def cold_pairs(x, gy):
+    """``cold_inputs`` for the backward's (x, g): an endless cycle over
+    copies of the pair spanning 4× the L2, and the number of copies."""
+    copies = max(2, math.ceil(4 * L2_BYTES / (2 * x.numel()
+                                              * x.element_size())))
+    return itertools.cycle([(x, gy)] + [(placed_copy(x), placed_copy(gy))
+                                        for _ in range(copies - 1)]), copies
 
 
 def k2_bwd_times(x, gy, scale, bias) -> tuple:
@@ -763,10 +865,7 @@ def k2_bwd_times(x, gy, scale, bias) -> tuple:
     from scflow_torch.ops.fused_norm import (instance_norm_bwd,
                                              instance_norm_bwd_reference)
 
-    copies = max(2, math.ceil(4 * L2_BYTES / (2 * x.numel()
-                                              * x.element_size())))
-    pairs = itertools.cycle([(x, gy)] + [(x.clone(), gy.clone())
-                                         for _ in range(copies - 1)])
+    pairs, copies = cold_pairs(x, gy)
 
     def kernel():
         a, b = next(pairs)
@@ -3007,10 +3106,11 @@ def phase_train_pbr(train_ms: float, smi: str) -> tuple:
     return launches
 
 
-def k2_plane_inputs(n: int, c: int, h: int, w: int, offset: int, seed: int,
-                    dtype):
+def k2_plane_inputs(n: int, c: int, h: int, w: int, offset: int, loc: float,
+                    seed: int, dtype):
     """Seeded (x, g, scale, bias) on the card; x and g contiguous views
-    starting ``offset`` elements into their buffers."""
+    starting ``offset`` elements into their buffers; x of values loc ± 1
+    (loc ± ``K2_BF16_SPREAD`` in bf16) where ``loc``, else N(0.5, 2)."""
     import torch
 
     gen = torch.Generator().manual_seed(seed)
@@ -3021,21 +3121,27 @@ def k2_plane_inputs(n: int, c: int, h: int, w: int, offset: int, seed: int,
         view.copy_(t)
         return view
 
-    x = placed((torch.randn(n, c, h, w, generator=gen) * 2 + 0.5).cuda())
+    spread = K2_BF16_SPREAD if dtype == torch.bfloat16 else 1.0
+    x = (loc + (torch.rand(n, c, h, w, generator=gen) * 2 - 1) * spread
+         if loc else torch.randn(n, c, h, w, generator=gen) * 2 + 0.5)
+    x = placed(x.cuda())
     gy = placed(torch.randn(n, c, h, w, generator=gen).cuda())
     scale = (1 + 0.3 * torch.randn(c, generator=gen)).cuda()
     bias = (0.2 * torch.randn(c, generator=gen)).cuda()
     return x, gy, scale, bias
 
 
-def phase_k2_planes() -> tuple[list, dict]:
+def phase_k2_planes(kernels: dict) -> tuple[list, dict]:
     """K2 forward (eval batch) and backward (train batch) against their
     plain versions at ``K2_PLANES`` in f32 and bf16: the form each takes,
-    errors within the k2 phases' bounds, device time against the bound
-    and ``F.instance_norm``'s. Returns the kernels-line rows of the
-    general form (its streamed plane included) and the cluster form (per
-    dtype, summed over the planes that take that form, one launch each)
-    and the launches of this check."""
+    errors within the k2 phases' bounds (the 1e3 plane against float64
+    within ``k2_near64``'s), device time against the bound and
+    ``F.instance_norm``'s, each kernel's profiled ms past the vector form
+    (from ``kernels``, ``phase_k2_kernels``'), and the bytes each form
+    moves. Returns the
+    kernels-line rows of each form past the vector form (``K2_FORMS``) per
+    direction and dtype, summed over the planes that take it, one launch
+    each, and the launches of this check."""
     import torch
     import torch.nn.functional as F
 
@@ -3046,24 +3152,25 @@ def phase_k2_planes() -> tuple[list, dict]:
     reset_counts()
     totals = {(d, form, dt): dict(ms=0.0, call_ms=0.0, plain_ms=0.0,
                                   library_ms=0.0, bytes=0.0, ops=0.0,
-                                  worst=0.0, planes=[])
-              for d in ("fwd", "bwd") for form in ("general", "cluster")
+                                  kernel_bytes=0.0, worst=0.0, planes=[])
+              for d in ("fwd", "bwd") for form in K2_FORMS
               for dt in ("f32", "bf16")}
-    for i, (c, h, w, offset) in enumerate(K2_PLANES):
+    for i, (c, h, w, offset, loc) in enumerate(K2_PLANES):
         for dtype in (torch.float32, torch.bfloat16):
             dt = "f32" if dtype == torch.float32 else "bf16"
-            x, gy, scale, bias = k2_plane_inputs(BATCH, c, h, w, offset, i,
-                                                 dtype)
-            hw = h * w
+            spread = K2_BF16_SPREAD if dt == "bf16" else 1.0
+            x, gy, scale, bias = k2_plane_inputs(BATCH, c, h, w, offset, loc,
+                                                 i, dtype)
             # the form the check's launch took, as its wrapper counted it
             before = form_counts()
-            err = k2_fwd_check(x, scale, bias, "k2_planes")
+            err = k2_fwd_check(x, scale, bias, "k2_planes", bool(loc))
             took = {k.split(".")[1] for k, v in form_counts().items()
                     if v != before[k]}
-            form = ({"general", "cluster"} & took or {"vector"}).pop()
-            streamed = "streamed" in took
+            form = (set(K2_FORMS) & took or {"vector"}).pop()
             check(form != "vector" or offset == 0,
                   "k2_planes: an unaligned view took the vector form")
+            # the split form reads a plane twice (x, and g backward)
+            reads = 2 if form == "split" else 1
             xs = cold_inputs(x)
             fwd = dict(
                 ms=device_ms(lambda: instance_norm_fwd(next(xs), scale, bias),
@@ -3076,26 +3183,29 @@ def phase_k2_planes() -> tuple[list, dict]:
                     next(xs), weight=scale, bias=bias, eps=1e-5),
                     KERNEL_REPS),
                 bytes=2 * x.numel() * x.element_size(),
-                ops=x.numel() * K2_OPS_PER_ELEM, worst=err)
+                ops=x.numel() * K2_OPS_PER_ELEM, worst=err,
+                kernel_ms=kernels["planes"].get(f"{i}.{dt}.fwd"))
             del xs
-            # the bytes this design moves: a streamed plane's variance and
-            # output passes read its part past shared memory again
-            over = (hw - K2_STAGED) * x.shape[0] * c if streamed else 0
-            fwd["kernel_bytes"] = fwd["bytes"] + 2 * over * x.element_size()
+            fwd["kernel_bytes"] = (1 + reads) * x.numel() * x.element_size()
             xb, gb = x[:TRAIN_BATCH], gy[:TRAIN_BATCH]
             if offset:            # the train batch's views, offset as well
                 xb, gb, _, _ = k2_plane_inputs(TRAIN_BATCH, c, h, w, offset,
-                                               i, dtype)
-            b_err, sum_err = k2_bwd_check(xb, gb, scale, "k2_planes bwd")
+                                               loc, i, dtype)
+            b_err, sum_err = k2_bwd_check(xb, gb, scale, "k2_planes bwd",
+                                          bool(loc))
             ms, one, plain_ms, lib = k2_bwd_times(xb, gb, scale, bias)
             bwd = dict(ms=ms, call_ms=one, plain_ms=plain_ms, library_ms=lib,
+                       kernel_ms=kernels["planes"].get(f"{i}.{dt}.bwd"),
                        bytes=3 * xb.numel() * xb.element_size() + 3 * c * 4,
                        ops=xb.numel() * K2_BWD_OPS_PER_ELEM, worst=b_err)
+            bwd["kernel_bytes"] = (bwd["bytes"] + 2 * (reads - 1) * xb.numel()
+                                   * xb.element_size())
             for d, r in (("fwd", fwd), ("bwd", bwd)):
                 r["bound_ms"], r["bound_by"] = bound_ms(r["bytes"], r["ops"])
             emit(phase="k2_planes", plane=[h, w], channels=c,
-                 storage_offset=offset, dtype=str(dtype), form=form,
-                 streamed=streamed,
+                 storage_offset=offset,
+                 values=f"{loc} ± {spread:g}" if loc else "N(0.5, 2)",
+                 dtype=str(dtype), form=form,
                  fwd=dict(shape=list(x.shape), **fwd),
                  bwd=dict(shape=list(xb.shape), sums_max_rel_err=sum_err,
                           **bwd))
@@ -3106,9 +3216,10 @@ def phase_k2_planes() -> tuple[list, dict]:
                 tot["worst"] = max(tot["worst"], r["worst"])
                 tot["planes"].append(f"{c}@{h}x{w}" + (f"+{offset}"
                                                        if offset else "")
-                                     + (" streamed" if streamed else ""))
+                                     + (f" of {loc:g} ± {spread:g}" if loc
+                                        else ""))
                 for key in ("ms", "call_ms", "plain_ms", "library_ms",
-                            "bytes", "ops"):
+                            "bytes", "ops", "kernel_bytes"):
                     tot[key] += r[key]
     rows = []
     for (d, form, dt), tot in totals.items():
@@ -3122,21 +3233,197 @@ def phase_k2_planes() -> tuple[list, dict]:
                       "scflow_tpu/ops/fused_norm.py:148 (_bwd, plain XLA)"),
             planes=tot["planes"], max_abs_err=tot["worst"], ms=tot["ms"],
             call_ms=tot["call_ms"], plain_ms=tot["plain_ms"], bound_ms=b_ms,
-            bound_by=b_by, library_ms=tot["library_ms"]))
+            bound_by=b_by, library_ms=tot["library_ms"],
+            kernel_bytes=tot["kernel_bytes"]))
     checked = form_counts()
     emit(phase="k2_planes_done", launches_by_form=checked,
          phase_seconds=time.perf_counter() - t_phase)
     return rows, checked
 
 
-def phase_backbone() -> dict:
+# K2's kernels by name (template arguments dropped), with the direction
+# and form whose launch runs each once; every backward launch also runs
+# instance_norm_bwd_reduce once
+K2_KERNELS = {"instance_norm_fwd_kernel": ("fwd", "vector"),
+              "instance_norm_fwd_warp": ("fwd", "warp"),
+              "instance_norm_fwd_any": ("fwd", "general"),
+              "instance_norm_fwd_cluster": ("fwd", "cluster"),
+              "instance_norm_split_stats": ("fwd", "split"),
+              "instance_norm_split_fwd": ("fwd", "split"),
+              "instance_norm_bwd_kernel": ("bwd", "vector"),
+              "instance_norm_bwd_warp": ("bwd", "warp"),
+              "instance_norm_bwd_any": ("bwd", "general"),
+              "instance_norm_bwd_cluster": ("bwd", "cluster"),
+              "instance_norm_split_bwd_stats": ("bwd", "split"),
+              "instance_norm_split_bwd": ("bwd", "split"),
+              "instance_norm_bwd_reduce": ("bwd", None)}
+# host seconds each K2 trace stays idle after it starts and before it
+# stops, a margin for the drift between the host's and the trace's
+# clocks; the argument that makes this script the process that takes
+# those traces (``phase_k2_kernels``)
+PROFILE_MARGIN_S = 0.05
+K2_KERNELS_ARG = "--k2-kernel-ms"
+
+
+def k2_trace(fn, calls: int, margin: float) -> tuple:
+    """``calls`` calls of ``fn`` under torch.profiler, ``margin`` host
+    seconds idle after the trace starts and before it stops: (the K2
+    kernels in the trace by name, template arguments dropped: their count
+    and device ms per call; the count the wrappers' launches in the same
+    calls give each of ``K2_KERNELS``)."""
+    import collections
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from scflow_torch.ops.fused_norm import instance_norm_bwd, instance_norm_fwd
+
+    wrappers = {"fwd": instance_norm_fwd, "bwd": instance_norm_bwd}
+    before = {d: collections.Counter(w.form_launches)
+              for d, w in wrappers.items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(margin)
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(margin)
+    forms = collections.Counter()
+    for d, w in wrappers.items():
+        for (form, _), n in (w.form_launches - before[d]).items():
+            forms[d, form] += n
+            if d == "bwd":
+                forms[d, None] += n
+    seen, ms = collections.Counter(), collections.Counter()
+    for e in prof.key_averages():
+        name = re.search(r"instance_norm_\w+", e.key)
+        if e.device_type == torch.autograd.DeviceType.CUDA and name:
+            seen[name.group()] += e.count
+            ms[name.group()] += e.self_device_time_total / 1e3 / calls
+    return seen, ms, {k: forms[v] for k, v in K2_KERNELS.items()}
+
+
+def k2_kernel_ms(fn, calls: int = 1, tries: int = 3) -> dict:
+    """``k2_trace`` with ``PROFILE_MARGIN_S``: the device ms per call of
+    each K2 kernel by its name. Every kernel of ``K2_KERNELS`` must be in
+    the trace as many times as the wrappers counted its form's launches in
+    the same calls; a trace that differs is taken again, up to ``tries``
+    times, and then it raises: no partial figure is returned."""
+    for _ in range(tries):
+        seen, ms, want = k2_trace(fn, calls, PROFILE_MARGIN_S)
+        if all(seen[k] == want.get(k, 0) for k in set(want) | set(seen)):
+            return dict(ms)
+    check(False, f"k2_kernel_ms: trace {dict(seen)} against launches "
+                 f"{ {k: v for k, v in want.items() if v} }")
+
+
+def k2_kernels_child() -> dict:
+    """The work of ``phase_k2_kernels``' process: ``k2_kernel_ms`` of the
+    forward (eval batch) and the backward (train batch), 5 calls each on
+    inputs that are not in L2, at every ``K2_PLANES`` plane and dtype past
+    the vector form, keyed "i.dt.fwd" and "i.dt.bwd" (i the plane's index);
+    and of ResNet-50's forward and of its forward with backward at
+    ``phase_backbone``'s shapes and seeds, keyed by run ("plain", "v1d",
+    "large"): {"fwd": the forward's kernels, "bwd": the backward's}."""
+    import torch
+
+    from scflow_torch.models import ResNet
+    from scflow_torch.ops.fused_norm import instance_norm_bwd, instance_norm_fwd
+
+    planes = {}
+    for i, (c, h, w, offset, loc) in enumerate(K2_PLANES):
+        for dtype in (torch.float32, torch.bfloat16):
+            dt = "f32" if dtype == torch.float32 else "bf16"
+            x, gy, scale, bias = k2_plane_inputs(BATCH, c, h, w, offset, loc,
+                                                 i, dtype)
+            vector = instance_norm_fwd.form_launches["vector", dt]
+            instance_norm_fwd(x, scale, bias)
+            if instance_norm_fwd.form_launches["vector", dt] != vector:
+                continue
+            xs = cold_inputs(x)
+            planes[f"{i}.{dt}.fwd"] = k2_kernel_ms(
+                lambda: instance_norm_fwd(next(xs), scale, bias), 5)
+            xb, gb = x[:TRAIN_BATCH], gy[:TRAIN_BATCH]
+            if offset:            # the train batch's views, offset as well
+                xb, gb, _, _ = k2_plane_inputs(TRAIN_BATCH, c, h, w, offset,
+                                               loc, i, dtype)
+            pairs, _ = cold_pairs(xb, gb)
+            planes[f"{i}.{dt}.bwd"] = k2_kernel_ms(
+                lambda: instance_norm_bwd(*next(pairs), scale), 5)
+            del x, gy, xs, xb, gb, pairs
+            torch.cuda.empty_cache()
+    backbone = {}
+    gen = torch.Generator().manual_seed(7)
+    for name, deep, n, side, seed in (
+            ("plain", False, BACKBONE_BATCH, BACKBONE_SIZE, 50),
+            ("v1d", True, BACKBONE_BATCH, BACKBONE_SIZE, 51),
+            ("large", False, BACKBONE_LARGE_BATCH, BACKBONE_LARGE_SIZE, 52)):
+        x = torch.randn(n, 3, side, side, generator=gen).cuda()
+        torch.manual_seed(seed)
+        model = ResNet(50, 64, (3,), deep, "in").cuda()
+        with torch.no_grad():
+            y = model(x)                                # warm-up
+            fwd = k2_kernel_ms(lambda: model(x))
+        w = torch.randn(y.shape, generator=gen).cuda()
+        (model(x) * w).sum().backward()                 # warm-up
+        both = k2_kernel_ms(lambda: (model(x) * w).sum().backward())
+        backbone[name] = dict(fwd=fwd, bwd={k: v for k, v in both.items()
+                                            if "bwd" in k})
+        del model, x, y, w
+        torch.cuda.empty_cache()
+    return dict(planes=planes, backbone=backbone)
+
+
+def phase_k2_kernels() -> dict:
+    """K2's kernels' profiled device ms (``k2_kernels_child``), taken in a
+    process of their own that this one waits for: late in this long
+    process the profiler's traces lose kernels, while a fresh process's
+    keep them all. A canary shows it: 5 launches of the vector form (32 ×
+    256 planes of 16²) traced here, with and without the margin, and the
+    kernels each trace kept. The other process's launches count on no
+    path."""
+    import os
+
+    import torch
+
+    from scflow_torch.ops.fused_norm import instance_norm_fwd
+
+    t0 = time.perf_counter()
+    x, _, scale, bias = k2_plane_inputs(BATCH, 256, 16, 16, 0, 0.0, 0,
+                                        torch.float32)
+    canary = {}
+    for margin in (0.0, PROFILE_MARGIN_S):
+        seen, _, want = k2_trace(lambda: instance_norm_fwd(x, scale, bias), 5,
+                                 margin)
+        canary[f"margin_{margin:g}_s"] = dict(kept=sum(seen.values()),
+                                              launched=sum(want.values()))
+    del x
+    here = os.path.dirname(os.path.abspath(__file__))
+    done = subprocess.run([sys.executable, os.path.join(here, "chip_smoke.py"),
+                           K2_KERNELS_ARG], capture_output=True, text=True,
+                          timeout=600, cwd=here)
+    check(done.returncode == 0, f"k2_kernels: the process exited "
+                                f"{done.returncode}: {done.stderr[-3000:]}")
+    out = json.loads(done.stdout.strip().splitlines()[-1])
+    emit(phase="k2_kernels", seconds=time.perf_counter() - t0,
+         traces=len(out["planes"]) + 2 * len(out["backbone"]),
+         canary_in_this_process=canary, backbone=out["backbone"])
+    return out
+
+
+def phase_backbone(kernels: dict) -> dict:
     """ResNet-50 with instance norm at the reference widths, plain and V1d
     stems, batch 32 × 224², f32: one forward (K2 launches by form, time,
     peak memory; 2 samples against the CPU port), one backward (K2
     backward launches; the gradient of 2 samples against the CPU within
-    ``train_parity``'s bound). Returns each run's launches of K1, the K2
+    ``train_parity``'s bound). Then the plain stem at 2 × 1400² (its stem's
+    planes past a cluster): one forward (K2 launches by form: the split
+    form once; 1 sample against the CPU) and one backward. Each run's K2
+    device ms per kernel, forward and backward, come from ``kernels``
+    (``phase_k2_kernels``). Returns each run's launches of K1, the K2
     forward and backward, and K2's by form: the forward alone and forward
-    with backward, per stem."""
+    with backward."""
     import copy
 
     import torch
@@ -3165,8 +3452,9 @@ def phase_backbone() -> dict:
             fwd_ms = call_ms(lambda: model(x), 3, 1)
         check((k1, k2, k2b) == (0, BACKBONE_K2[deep], 0),
               f"backbone {name}: launches {k1}/{k2}/{k2b}")
-        check(forms["fwd.general.f32"] > 0 and not any(
-            v for k, v in forms.items() if k != "fwd.general.f32"),
+        # layers 3 and 4 (14² and 7² planes) take the warp form
+        check(forms["fwd.warp.f32"] > 0 and not any(
+            v for k, v in forms.items() if k != "fwd.warp.f32"),
               f"backbone {name}: K2 forms {forms}")
         check(bool(torch.isfinite(y).all()), f"backbone {name}: not finite")
         # 2 samples on the CPU, and again with the input moved by 1e-6 of
@@ -3182,7 +3470,9 @@ def phase_backbone() -> dict:
         bound = max(BACKBONE_REL, 5 * spread)
         check(rel <= bound, f"backbone {name}: card vs CPU {rel} > {bound}")
         rec = dict(launches_per_forward=k2, launches_by_form=forms,
-                   forward_ms=fwd_ms, peak_mem_gib=peak,
+                   forward_ms=fwd_ms,
+                   forward_k2_device_ms=kernels["backbone"][name]["fwd"],
+                   peak_mem_gib=peak,
                    cpu_parity={"samples": 2, "max_rel_err": rel,
                                "cpu_spread": spread, "bound": bound})
         # one backward at the batch: K2 backward launches
@@ -3192,9 +3482,11 @@ def phase_backbone() -> dict:
         torch.cuda.synchronize()
         k1, k2, k2b = counts()
         bforms = form_counts()
-        check((k2, k2b) == (BACKBONE_K2[deep],) * 2,
-              f"backbone {name}: backward launches {k2}/{k2b}")
-        rec.update(backward_launches=k2b, backward_launches_by_form=bforms)
+        check((k2, k2b) == (BACKBONE_K2[deep],) * 2
+              and bforms["bwd.warp.f32"] == forms["fwd.warp.f32"],
+              f"backbone {name}: backward launches {k2}/{k2b} {bforms}")
+        rec.update(backward_launches=k2b, backward_launches_by_form=bforms,
+                   backward_k2_device_ms=kernels["backbone"][name]["bwd"])
         launches[f"backbone_{name}"] = (0, BACKBONE_K2[deep], 0, forms)
         launches[f"backbone_{name}_train"] = (k1, k2, k2b, bforms)
         if not deep:
@@ -3217,6 +3509,58 @@ def phase_backbone() -> dict:
         out[name] = rec
         del model, cpu_model, y
         torch.cuda.empty_cache()
+
+    # the plain stem past ~1356²: its 700² stem planes take the split form
+    side = BACKBONE_LARGE_SIZE
+    xl = torch.randn(BACKBONE_LARGE_BATCH, 3, side, side, generator=gen).cuda()
+    torch.manual_seed(52)
+    model = ResNet(50, 64, (3,), False, "in").cuda()
+    with torch.no_grad():
+        model(xl)                                       # warm-up
+        torch.cuda.synchronize()
+        reset_counts(general_ok=True)
+        y = model(xl)
+        torch.cuda.synchronize()
+        k1, k2, k2b = counts()
+        forms = form_counts()
+        fwd_ms = call_ms(lambda: model(xl), 3, 1)
+        cpu_model = copy.deepcopy(model).cpu()
+        want = cpu_model(xl[:1].cpu())
+        nudged = cpu_model(xl[:1].cpu() * (1 + 1e-6))
+    check((k1, k2, k2b) == (0, BACKBONE_K2[False], 0)
+          and forms["fwd.split.f32"] == 1,
+          f"backbone {side}²: launches {k1}/{k2}/{k2b} {forms}")
+    # 1 sample on the CPU, the bound as at 224²
+    scale = want.abs().max()
+    rel = ((y[:1].cpu() - want).abs().max() / scale).item()
+    spread = ((nudged - want).abs().max() / scale).item()
+    bound = max(BACKBONE_REL, 5 * spread)
+    check(bool(torch.isfinite(y).all()) and rel <= bound,
+          f"backbone {side}²: card vs CPU {rel} > {bound}")
+    w = torch.randn(y.shape, generator=gen).cuda()
+    reset_counts(general_ok=True)
+    (model(xl) * w).sum().backward()
+    torch.cuda.synchronize()
+    k1, k2, k2b = counts()
+    bforms = form_counts()
+    check((k2, k2b) == (BACKBONE_K2[False],) * 2
+          and bforms["bwd.split.f32"] == 1,
+          f"backbone {side}²: backward launches {k2}/{k2b} {bforms}")
+    check(all(bool(torch.isfinite(p.grad).all()) for p in model.parameters()),
+          f"backbone {side}²: a gradient is not finite")
+    out["large"] = dict(batch=BACKBONE_LARGE_BATCH, image=[side, side],
+                        launches_by_form=forms, forward_ms=fwd_ms,
+                        forward_k2_device_ms=kernels["backbone"]["large"][
+                            "fwd"],
+                        backward_launches_by_form=bforms,
+                        backward_k2_device_ms=kernels["backbone"]["large"][
+                            "bwd"],
+                        cpu_parity={"samples": 1, "max_rel_err": rel,
+                                    "cpu_spread": spread, "bound": bound})
+    launches["backbone_large"] = (0, BACKBONE_K2[False], 0, forms)
+    launches["backbone_large_train"] = (k1, k2, k2b, bforms)
+    del model, cpu_model, y, xl
+    torch.cuda.empty_cache()
     emit(phase="backbone", depth=50, base_channels=64, norm="in",
          batch=BACKBONE_BATCH, image=[BACKBONE_SIZE] * 2, dtype="float32",
          **out, phase_seconds=time.perf_counter() - t_phase)
@@ -3229,7 +3573,9 @@ def phase_image_size(bank) -> dict:
     30 per packed batch, the 256² planes on the cluster form; 2 images' poses
     against the CPU), and one train step at 480² and batch 4 (K1 1, K2 30
     and 30; 2 samples' loss and gradient against the CPU). Returns each
-    run's launches and forms."""
+    run's launches and forms. (Frames are multiples of K1's 32-pixel tile,
+    so the encoders' planes, (S/2)², (S/4)² and (S/8)², are multiples of
+    16: no image size reaches K2's warp, general or split form.)"""
     import tempfile
     from unittest import mock
 
@@ -3296,6 +3642,7 @@ def phase_image_size(bank) -> dict:
         cpu_s = time.perf_counter() - t0
         check(len(cpu_results) == BOP_CPU_IMAGES,
               f"image_size: {len(cpu_results)} CPU results")
+
     rot_err = trans_err = 0.0
     for g, c in zip(results, cpu_results):
         rot_err = max(rot_err, float(np.abs(g["rotations"]
@@ -3544,6 +3891,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
         return 1
+    if sys.argv[1:] == [K2_KERNELS_ARG]:
+        print(json.dumps(k2_kernels_child()))
+        return 0
     from scflow_torch.ops import _build
     from scflow_torch.rendering import Renderer, make_test_meshes
     from scflow_torch.training import (Config, ModelConfig, build_model,
@@ -3642,9 +3992,11 @@ def main() -> int:
     parallel = run_phase("parallel", phase_parallel, bank)
     options, bare_row = run_phase("options", phase_options, bank, renderer, batch)
     # every old path ran K2's vector form only (reset_counts checks it);
-    # the new phases read the general and cluster forms' launches
-    plane_rows, plane_checks = run_phase("k2_planes", phase_k2_planes)
-    backbone = run_phase("backbone", phase_backbone)
+    # the new phases read the other forms' launches
+    kernels = run_phase("k2_kernels", phase_k2_kernels)
+    plane_rows, plane_checks = run_phase("k2_planes", phase_k2_planes,
+                                         kernels)
+    backbone = run_phase("backbone", phase_backbone, kernels)
     image_size = run_phase("image_size", phase_image_size, bank)
     tools = run_phase("tools", phase_tools, bank)
     emit(phase="done", seconds_total=time.perf_counter() - t_start)
@@ -3663,13 +4015,13 @@ def main() -> int:
         return {p: paths[p][i] for p in names}
 
     # the new phases' paths beside the old ones: K1's two forms, and the
-    # K2 vector form's share of each (its launches less the general form's)
+    # K2 vector form's share of each (its launches less the other forms')
     new_paths = {**backbone, **{p: (*c, f) for p, (c, f) in
                                  image_size.items()}}
     form_paths = {p: v[3] for p, v in new_paths.items()}
 
     def other_forms(f, d):
-        return sum(f[f"{d}.{form}.{dt}"] for form in ("general", "cluster")
+        return sum(f[f"{d}.{form}.{dt}"] for form in K2_FORMS
                    for dt in ("f32", "bf16"))
 
     for p, (k1, k2, k2b, f) in new_paths.items():
@@ -3687,19 +4039,27 @@ def main() -> int:
     bwd_rows[0].update(launches=train[2], launches_by_path=by_path(
         2, ("train", "trainer", "raft_train", "train_bop", "train_pbr",
             "parallel", "options_train", "backbone_plain_train",
-            "backbone_v1d_train", "image_size_train")))
+            "backbone_v1d_train", "backbone_large_train",
+            "image_size_train")))
     bwd_rows[1].update(launches=train_bf16[2],
                        launches_by_path=by_path(2, ("train_bf16",)))
-    # K2's general and cluster forms per dtype: launches on the new paths
+    # K2's forms past the vector form per dtype: launches on the new paths
     # as the wrappers counted them (every old path launched the vector form
-    # only: reset_counts checks it), and in k2_planes' checks
+    # only: reset_counts checks it), and in k2_planes' checks; ``launches``
+    # from the path each f32 form serves (forward, backward)
+    own_path = {"warp": ("backbone_plain_train",) * 2,
+                "general": ("backbone_large_train",) * 2,
+                "cluster": ("image_size_train",) * 2,
+                "split": ("backbone_large_train",) * 2}
     for row in plane_rows:
         d = "fwd" if row["name"].startswith("instance_norm_fwd") else "bwd"
-        key = f"{d}.{row.pop('form')}.{row.pop('dtype')}"
+        form, dt = row.pop("form"), row.pop("dtype")
+        key = f"{d}.{form}.{dt}"
         per_path = {p: f[key] for p, f in form_paths.items()}
         per_path["every_other_path"] = 0
-        own = ("backbone_plain_train" if "general" in key
-               else "image_size_train")
+        own = own_path[form][d == "bwd"]
+        check(dt == "bf16" or per_path[own] > 0,
+              f"kernels: {key} never launched on {own}")
         row.update(launches=per_path[own], launches_by_path=per_path,
                    check_launches=plane_checks[key])
     rows = [k1_row, bare_row, *fwd_rows, *bwd_rows, *plane_rows]

@@ -15,7 +15,7 @@
 // same written, far below the H100's ~20 FP32 operations per byte, so the
 // bound is 2 * numel * sizeof(x) over 3.35 TB/s.
 //
-// Three forms, chosen per launch by the entry from H*W and the pointers'
+// Five forms, chosen per launch by the entry from H*W and the pointers'
 // alignment (`pick_form`; it reports the choice to the caller):
 //  0. vector form: planes of at most kMaxPlane (57,344) elements, H*W a
 //     multiple of 8 and every pointer 16-byte aligned (every plane of the
@@ -28,16 +28,22 @@
 //     warp shuffles and one shared-memory step; the output is written once
 //     with 16-byte stores. 2048 to 4096 CTAs per launch at batch 32 keep
 //     all SMs busy; three 64 KB planes fit an SM at once.
+//  4. warp form: the other planes of at most kWarpPlane (512) elements
+//     (ResNet's 7x7 and 14x14, 13x17, a small plane at an offset). One
+//     warp per plane, eight warps a CTA of 256 threads: each lane holds
+//     at most 16 of the plane's elements in registers (coalesced scalar
+//     loads, so no alignment matters) and both statistics come from
+//     __shfl_xor_sync alone: no shared memory, no __syncthreads. A forward
+//     warp takes up to 8 planes of 1 to 4 elements a lane and loads them
+//     all before it reduces any. One CTA per small plane was bound by CTA
+//     launches, not bytes; at 7x7 the warp form is still bound by its
+//     launch and latency more than by bytes (PERF.md).
 //  1. general form: the other planes of at most kMaxPlane elements (an odd
-//     H*W such as 7x7 or 13x17, a base that is not 16-byte aligned, a view
-//     with a storage offset), and planes past what a cluster holds. One
+//     H*W such as 25x25 or 50x50, a base that is not 16-byte aligned). One
 //     CTA per plane of 32 to 1024 threads (about 8 elements a thread), each
 //     thread on elements t, t + T, ...: every load and store is a
-//     coalesced scalar access, so no alignment of x, y (or g, dx) and no
-//     length is special. The plane (its first kMaxPlane elements) is
-//     staged in shared memory; the rest of a plane past kMaxCluster *
-//     kMaxPlane (458,752) elements is streamed: read again from device
-//     memory by the variance and output passes. Two-pass f32 statistics.
+//     coalesced scalar access. The plane is staged in shared memory, so it
+//     is read once. Two-pass f32 statistics.
 //  2. cluster form: planes of kMaxPlane < H*W <= 458,752 elements (the
 //     240x240 and 256x256 stems of 480- and 512-pixel crops, the 240x320
 //     half-resolution plane of a 480x640 frame). A thread-block cluster of
@@ -49,9 +55,26 @@
 //     backward). The plane is read once and written once, in 16-byte
 //     vectors where a slice's pointers are 16-byte aligned (slices start
 //     at multiples of 8 elements), else in coalesced scalars.
+//  3. split form: planes past a cluster (H*W > 458,752: a 700x700 plane,
+//     the stem of a crop past ~1356 pixels). Each plane is cut into slices
+//     of 16 KB (4096 f32 or 8192 bf16 elements; 4096 backward), one CTA of
+//     256 threads each, held in registers, so the grid fills the card
+//     whatever the number of planes.
+//     Two launches: the first writes each slice's sum and its own centred
+//     sum of squares (two passes over the registers); the second combines
+//     a plane's slices in slice order (Chan: M2 = sum of M2_s + n_s (m_s -
+//     mean)^2, by the CTA's first warp, shared through shared memory),
+//     re-reads its slice and normalises. A whole slice at 16-byte aligned
+//     pointers moves in 16-byte vectors, any other in coalesced scalars.
+//     The plane is read twice; the second launch walks the slices in
+//     reverse so that its first CTAs find the first launch's last slices
+//     in L2. No float atomics: two launches give equal bits. (A cluster of
+//     up to 16 CTAs would read a 700x700 plane once, but needs the
+//     non-portable cluster size and one CTA an SM, and still a second
+//     design past 16 * kMaxPlane elements; the split form takes any size.)
 // Bound of every form: 2 * numel * sizeof(x) bytes forward (3 * numel
-// backward) over 3.35 TB/s; the streamed part of a general-form plane adds
-// 2 * (H*W - kMaxPlane) * sizeof(x) per plane (3 forward reads of it).
+// backward) over 3.35 TB/s; the split form moves 3 * numel * sizeof(x)
+// forward (5 * numel backward), less what its second launch finds in L2.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -74,6 +97,24 @@ constexpr int kMaxThreads = 1024;
 constexpr int kMaxCluster = 8;
 constexpr int kClusterSlice = 16 * 1024;
 constexpr int kClusterThreads = 512;
+// the warp form: one warp a plane, eight planes a CTA, at most
+// kWarpMaxPerLane elements a lane; planes up to kWarpPlane elements take it
+constexpr int kWarpsPerCta = 8;
+constexpr int kWarpMaxPerLane = 16;
+constexpr int kWarpPlane = 512;
+static_assert(kWarpPlane <= 32 * kWarpMaxPerLane,
+              "a lane holds at most kWarpMaxPerLane elements");
+// a forward warp takes several small planes, up to kWarpValues elements a
+// lane
+constexpr int kWarpValues = 8;
+// the split form: slices of kThreads * PER elements, PER a thread in
+// registers: kSplitPer, and kSplitPerBf16 in the bf16 forward (the same 64
+// bytes a thread as f32)
+constexpr int kSplitPer = 16;
+constexpr int kSplitPerBf16 = 32;
+constexpr int split_per(int bytes, bool backward) {
+  return bytes == 2 && !backward ? kSplitPerBf16 : kSplitPer;
+}
 
 __device__ __forceinline__ float block_sum(float v, float* scratch) {
 #pragma unroll
@@ -334,7 +375,12 @@ cudaError_t launch_bwd(const void* x, const void* g, const float* scale,
   return cudaGetLastError();
 }
 
-// ---- the general form (form 1): any length, any element-aligned base ----
+__device__ __forceinline__ bool on16(const void* p) {
+  return ((uintptr_t)p & 15u) == 0;
+}
+
+// ---- the general form (form 1): any length up to kMaxPlane, any
+// element-aligned base ----
 
 // sum over a block of any multiple of 32 threads up to 1024
 __device__ __forceinline__ float block_sum_any(float v, float* scratch) {
@@ -359,14 +405,7 @@ __device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// x of the plane's element e: staged below kMaxPlane, streamed above
-template <typename T>
-__device__ __forceinline__ float plane_x(const float* staged, const T* xp,
-                                         int e) {
-  return e < kMaxPlane ? staged[e] : load1(xp + e);
-}
-
-// mean and inv = rsqrt(var + eps) of one plane, staging its head in `staged`
+// mean and inv = rsqrt(var + eps) of one plane, staging it in `staged`
 template <typename T>
 __device__ __forceinline__ void plane_stats(const T* xp, int hw, float eps,
                                             float* staged, float* scratch,
@@ -375,14 +414,14 @@ __device__ __forceinline__ void plane_stats(const T* xp, int hw, float eps,
 #pragma unroll 4
   for (int e = threadIdx.x; e < hw; e += blockDim.x) {
     const float v = load1(xp + e);
-    if (e < kMaxPlane) staged[e] = v;
+    staged[e] = v;
     sum += v;
   }
   mean = block_sum_any(sum, scratch) / hw;   // its barrier publishes staged
   float sq = 0.f;
 #pragma unroll 4
   for (int e = threadIdx.x; e < hw; e += blockDim.x) {
-    const float d = plane_x(staged, xp, e) - mean;
+    const float d = staged[e] - mean;
     sq += d * d;
   }
   inv = rsqrtf(block_sum_any(sq, scratch) / hw + eps);
@@ -393,7 +432,7 @@ __global__ void __launch_bounds__(kMaxThreads)
 instance_norm_fwd_any(const T* __restrict__ x, const float* __restrict__ scale,
                       const float* __restrict__ bias, T* __restrict__ y,
                       int channels, int hw, float eps) {
-  extern __shared__ float staged[];  // the plane's first kMaxPlane elements
+  extern __shared__ float staged[];  // the plane
   __shared__ float scratch[32];
   const size_t base = (size_t)blockIdx.x * hw;
   const T* xp = x + base;
@@ -403,10 +442,9 @@ instance_norm_fwd_any(const T* __restrict__ x, const float* __restrict__ scale,
   plane_stats(xp, hw, eps, staged, scratch, mean, inv);
   const float g = scale[c], bb = bias[c];
 #pragma unroll 4
-  for (int e = threadIdx.x; e < hw; e += blockDim.x) {
-    const float v = plane_x(staged, xp, e);
-    store1(yp + e, __fadd_rn(__fmul_rn(__fmul_rn(v - mean, inv), g), bb));
-  }
+  for (int e = threadIdx.x; e < hw; e += blockDim.x)
+    store1(yp + e, __fadd_rn(__fmul_rn(__fmul_rn(staged[e] - mean, inv), g),
+                             bb));
 }
 
 template <typename T>
@@ -430,7 +468,7 @@ instance_norm_bwd_any(const T* __restrict__ x, const T* __restrict__ g,
   for (int e = threadIdx.x; e < hw; e += blockDim.x) {
     const float gk = load1(gp + e);
     sg += gk;
-    sgx += gk * ((plane_x(staged, xp, e) - mean) * inv);
+    sgx += gk * ((staged[e] - mean) * inv);
   }
   sg = block_sum_any(sg, scratch);
   sgx = block_sum_any(sgx, scratch);
@@ -443,7 +481,7 @@ instance_norm_bwd_any(const T* __restrict__ x, const T* __restrict__ g,
   const float m2 = s * sgx / hw;
 #pragma unroll 4
   for (int e = threadIdx.x; e < hw; e += blockDim.x) {
-    const float xh = (plane_x(staged, xp, e) - mean) * inv;
+    const float xh = (staged[e] - mean) * inv;
     // an unfused g * s: its rounding cancels m1's exactly on a 1-element
     // plane, where dx is 0
     store1(dxp + e, inv * (__fmul_rn(load1(gp + e), s) - m1 - xh * m2));
@@ -469,7 +507,7 @@ template <typename T>
 cudaError_t launch_any(const void* x, const float* scale, const float* bias,
                        void* y, int planes, int channels, int hw, float eps,
                        cudaStream_t stream) {
-  const size_t smem = (size_t)(hw < kMaxPlane ? hw : kMaxPlane) * sizeof(float);
+  const size_t smem = (size_t)hw * sizeof(float);
   static size_t smem_set = 48 * 1024;
   const cudaError_t err = stage_smem(instance_norm_fwd_any<T>, smem, &smem_set);
   if (err != cudaSuccess) return err;
@@ -478,12 +516,21 @@ cudaError_t launch_any(const void* x, const float* scale, const float* bias,
   return cudaGetLastError();
 }
 
+// dscale, dbias from the per-plane sums `part` (2, planes)
+cudaError_t launch_bwd_reduce(const float* part, float* dscale, float* dbias,
+                              int planes, int channels, cudaStream_t stream) {
+  instance_norm_bwd_reduce<<<(channels + kThreads - 1) / kThreads, kThreads,
+                             0, stream>>>(part, part + planes, dscale, dbias,
+                                          planes / channels, channels);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_bwd_any(const void* x, const void* g, const float* scale,
                            void* dx, float* part, float* dscale, float* dbias,
                            int planes, int channels, int hw, float eps,
                            cudaStream_t stream) {
-  const size_t smem = (size_t)(hw < kMaxPlane ? hw : kMaxPlane) * sizeof(float);
+  const size_t smem = (size_t)hw * sizeof(float);
   static size_t smem_set = 48 * 1024;
   cudaError_t err = stage_smem(instance_norm_bwd_any<T>, smem, &smem_set);
   if (err != cudaSuccess) return err;
@@ -492,10 +539,501 @@ cudaError_t launch_bwd_any(const void* x, const void* g, const float* scale,
       hw, eps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  instance_norm_bwd_reduce<<<(channels + kThreads - 1) / kThreads, kThreads,
-                             0, stream>>>(part, part + planes, dscale, dbias,
-                                          planes / channels, channels);
+  return launch_bwd_reduce(part, dscale, dbias, planes, channels, stream);
+}
+
+// ---- the warp form (form 4): planes of at most kWarpPlane elements, one
+// warp a plane, the plane in registers ----
+
+__device__ __forceinline__ float warp_sum(float v) {
+  // a butterfly: every lane ends with the same bits (each step adds the
+  // same two values, in either order)
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// A warp takes P planes, one after another in memory, and loads all of
+// them before it reduces any: the loads of small planes (E = 1 or 2
+// elements a lane) are in flight together. Plane p's element i * 32 + lane
+// is the lane's v[p][i]. The first of the warp's planes:
+template <int P>
+__device__ __forceinline__ int warp_first_plane() {
+  return (blockIdx.x * kWarpsPerCta + (int)threadIdx.x / 32) * P;
+}
+
+template <typename T, int E, int P>
+__device__ __forceinline__ void warp_load(const T* x, int first, int planes,
+                                          int hw, float (&v)[P][E]) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+#pragma unroll
+    for (int i = 0; i < E; ++i) {
+      const int e = i * 32 + lane;
+      v[p][i] = first + p < planes && e < hw
+                    ? load1(x + (size_t)(first + p) * hw + e)
+                    : 0.f;
+    }
+}
+
+// each plane's mean and inv (every lane the same bits)
+template <int E, int P>
+__device__ __forceinline__ void warp_stats(const float (&v)[P][E], int hw,
+                                           float eps, float (&mean)[P],
+                                           float (&inv)[P]) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < E; ++i) sum += v[p][i];
+    mean[p] = warp_sum(sum) / hw;
+  }
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    float sq = 0.f;
+#pragma unroll
+    for (int i = 0; i < E; ++i) {
+      const float d = i * 32 + lane < hw ? v[p][i] - mean[p] : 0.f;
+      sq += d * d;
+    }
+    inv[p] = rsqrtf(warp_sum(sq) / hw + eps);
+  }
+}
+
+template <typename T, int E, int P>
+__global__ void __launch_bounds__(kWarpsPerCta * 32)
+instance_norm_fwd_warp(const T* __restrict__ x,
+                       const float* __restrict__ scale,
+                       const float* __restrict__ bias, T* __restrict__ y,
+                       int planes, int channels, int hw, float eps) {
+  const int first = warp_first_plane<P>();
+  if (first >= planes) return;                   // the whole warp
+  const int lane = threadIdx.x % 32;
+  float v[P][E], mean[P], inv[P];
+  warp_load<T, E, P>(x, first, planes, hw, v);
+  warp_stats<E, P>(v, hw, eps, mean, inv);
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    if (first + p >= planes) break;
+    const int c = (first + p) % channels;
+    const float g = scale[c], bb = bias[c];
+    T* yp = y + (size_t)(first + p) * hw;
+#pragma unroll
+    for (int i = 0; i < E; ++i) {
+      const int e = i * 32 + lane;
+      if (e < hw)
+        store1(yp + e,
+               __fadd_rn(__fmul_rn(__fmul_rn(v[p][i] - mean[p], inv[p]), g),
+                         bb));
+    }
+  }
+}
+
+template <typename T, int E, int P>
+__global__ void __launch_bounds__(kWarpsPerCta * 32)
+instance_norm_bwd_warp(const T* __restrict__ x, const T* __restrict__ g,
+                       const float* __restrict__ scale, T* __restrict__ dx,
+                       float* __restrict__ part_scale,
+                       float* __restrict__ part_bias, int planes,
+                       int channels, int hw, float eps) {
+  const int first = warp_first_plane<P>();
+  if (first >= planes) return;
+  const int lane = threadIdx.x % 32;
+  float xv[P][E], gv[P][E], mean[P], inv[P];
+  warp_load<T, E, P>(x, first, planes, hw, xv);
+  warp_load<T, E, P>(g, first, planes, hw, gv);
+  warp_stats<E, P>(xv, hw, eps, mean, inv);
+  float sg[P], sgx[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    sg[p] = sgx[p] = 0.f;
+#pragma unroll
+    for (int i = 0; i < E; ++i) {
+      if (i * 32 + lane < hw) {
+        sg[p] += gv[p][i];
+        sgx[p] += gv[p][i] * ((xv[p][i] - mean[p]) * inv[p]);
+      }
+    }
+    sg[p] = warp_sum(sg[p]);
+    sgx[p] = warp_sum(sgx[p]);
+  }
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const int plane = first + p;
+    if (plane >= planes) break;
+    if (lane == 0) {
+      part_scale[plane] = sgx[p];
+      part_bias[plane] = sg[p];
+    }
+    const float s = scale[plane % channels];
+    const float m1 = s * sg[p] / hw;
+    const float m2 = s * sgx[p] / hw;
+    T* dxp = dx + (size_t)plane * hw;
+#pragma unroll
+    for (int i = 0; i < E; ++i) {
+      const int e = i * 32 + lane;
+      if (e < hw) {
+        const float xh = (xv[p][i] - mean[p]) * inv[p];
+        // unfused g * s, as the general form: dx = 0 on a 1-element plane
+        store1(dxp + e, inv[p] * (__fmul_rn(gv[p][i], s) - m1 - xh * m2));
+      }
+    }
+  }
+}
+
+// the warp form's kernels for planes of hw <= 32 * E elements: E is the
+// least power of two that holds the plane; a forward warp takes P planes,
+// as many as keep E * P <= kWarpValues, a backward warp one (it holds x
+// and g; more planes a warp measured slower)
+template <typename T, int E = 1>
+cudaError_t launch_warp(bool backward, const void* x, const void* g,
+                        const float* scale, const float* bias, void* y,
+                        float* part, int planes, int channels, int hw,
+                        float eps, cudaStream_t stream) {
+  if constexpr (E < kWarpMaxPerLane) {
+    if (hw > 32 * E)
+      return launch_warp<T, 2 * E>(backward, x, g, scale, bias, y, part,
+                                   planes, channels, hw, eps, stream);
+  }
+  constexpr int P = kWarpValues / E < 1 ? 1 : kWarpValues / E;
+  if (backward) {
+    const int ctas = (planes + kWarpsPerCta - 1) / kWarpsPerCta;
+    instance_norm_bwd_warp<T, E, 1><<<ctas, kWarpsPerCta * 32, 0, stream>>>(
+        (const T*)x, (const T*)g, scale, (T*)y, part, part + planes, planes,
+        channels, hw, eps);
+  } else {
+    const int ctas = (planes + kWarpsPerCta * P - 1) / (kWarpsPerCta * P);
+    instance_norm_fwd_warp<T, E, P><<<ctas, kWarpsPerCta * 32, 0, stream>>>(
+        (const T*)x, scale, bias, (T*)y, planes, channels, hw, eps);
+  }
   return cudaGetLastError();
+}
+
+// ---- the split form (form 3): planes past a cluster, cut into slices of
+// kSliceOf<PER> elements, one CTA each, two launches ----
+
+// elements of a slice whose kThreads threads hold PER each
+template <int PER>
+constexpr int kSliceOf = kThreads * PER;
+
+// sums over the CTA (kThreads) of each thread's v[0..N), returned to every
+// thread in v; `scratch` holds N * kWarps floats
+template <int N>
+__device__ __forceinline__ void block_sums(float (&v)[N], float* scratch) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    v[k] = warp_sum(v[k]);
+    if (lane == 0) scratch[k * kWarps + warp] = v[k];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    float t = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) t += scratch[k * kWarps + w];
+    v[k] = t;
+  }
+  __syncthreads();   // scratch is reused by the next call
+}
+
+// the length of slice s of a plane of hw elements
+template <int PER>
+__device__ __forceinline__ int slice_len(int s, int hw) {
+  const int rest = hw - s * kSliceOf<PER>;
+  return rest < kSliceOf<PER> ? rest : kSliceOf<PER>;
+}
+
+// A slice in registers, PER values a thread. With `vec` (a
+// whole slice whose pointers are all 16-byte aligned) thread t holds the
+// V-element vectors t, t + kThreads, ... of the slice, moved as 16-byte
+// vectors; else its elements t, t + kThreads, ... in coalesced scalars
+// (0 past the slice's n). The slice's element that is v[i]:
+template <typename T>
+__device__ __forceinline__ int slice_elem(int i, bool vec) {
+  constexpr int V = Pack<T>::n;
+  return vec ? ((i / V) * kThreads + (int)threadIdx.x) * V + i % V
+             : i * kThreads + (int)threadIdx.x;
+}
+
+template <typename T, int PER>
+__device__ __forceinline__ void load_slice(const T* p, int n, bool vec,
+                                           float (&v)[PER]) {
+  constexpr int V = Pack<T>::n;
+  if (vec) {
+#pragma unroll
+    for (int j = 0; j < PER / V; ++j)
+      Pack<T>::load(p + ((size_t)j * kThreads + threadIdx.x) * V, v + j * V);
+  } else {
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int e = slice_elem<T>(i, false);
+      v[i] = e < n ? load1(p + e) : 0.f;
+    }
+  }
+}
+
+template <typename T, int PER>
+__device__ __forceinline__ void store_slice(T* p, int n, bool vec,
+                                            const float (&v)[PER]) {
+  constexpr int V = Pack<T>::n;
+  if (vec) {
+#pragma unroll
+    for (int j = 0; j < PER / V; ++j)
+      Pack<T>::store(p + ((size_t)j * kThreads + threadIdx.x) * V, v + j * V);
+  } else {
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int e = slice_elem<T>(i, false);
+      if (e < n) store1(p + e, v[i]);
+    }
+  }
+}
+
+template <int PER>
+__device__ __forceinline__ float thread_sum(const float (&v)[PER]) {
+  float t = 0.f;
+#pragma unroll
+  for (int i = 0; i < PER; ++i) t += v[i];
+  return t;
+}
+
+// this thread's sum of (v - m)^2 over the slice's first n elements
+template <typename T, int PER>
+__device__ __forceinline__ float slice_centred(const float (&v)[PER],
+                                               int n, bool vec, float m) {
+  float sq = 0.f;
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const float d = slice_elem<T>(i, vec) < n ? v[i] - m : 0.f;
+    sq += d * d;
+  }
+  return sq;
+}
+
+// forward, first launch: part[b] = (sum, centred sum of squares) of slice b
+template <typename T, int PER>
+__global__ void __launch_bounds__(kThreads)
+instance_norm_split_stats(const T* __restrict__ x, float2* __restrict__ part,
+                          int hw, int slices) {
+  __shared__ float scratch[kWarps];
+  const int plane = blockIdx.x / slices, s = blockIdx.x % slices;
+  const int n = slice_len<PER>(s, hw);
+  const T* xs = x + (size_t)plane * hw + (size_t)s * kSliceOf<PER>;
+  const bool vec = n == kSliceOf<PER> && on16(xs);
+  float v[PER];
+  load_slice(xs, n, vec, v);
+  float t[1] = {thread_sum(v)};
+  block_sums(t, scratch);
+  float q[1] = {slice_centred<T, PER>(v, n, vec, t[0] / n)};
+  block_sums(q, scratch);
+  if (threadIdx.x == 0) part[blockIdx.x] = make_float2(t[0], q[0]);
+}
+
+// a plane's mean and inv from its slices' (sum, M2), in slice order: lane
+// l of warp 0 takes slices l, l + 32, ..., then the warp's butterfly;
+// every thread reads them from `shared` after the barrier
+template <int PER>
+__device__ __forceinline__ void split_combine(const float2* part, int slices,
+                                              int hw, float eps,
+                                              float* shared, float& mean,
+                                              float& inv) {
+  if (threadIdx.x < 32) {
+    float t = 0.f;
+#pragma unroll 4
+    for (int s = threadIdx.x; s < slices; s += 32) t += part[s].x;
+    const float mu = warp_sum(t) / hw;
+    float m2 = 0.f;
+#pragma unroll 4
+    for (int s = threadIdx.x; s < slices; s += 32) {
+      const float2 p = part[s];
+      const float n = (float)slice_len<PER>(s, hw);
+      const float d = p.x / n - mu;
+      m2 += p.y + n * d * d;
+    }
+    const float iv = rsqrtf(warp_sum(m2) / hw + eps);
+    if (threadIdx.x == 0) {
+      shared[0] = mu;
+      shared[1] = iv;
+    }
+  }
+  __syncthreads();
+  mean = shared[0];
+  inv = shared[1];
+}
+
+// forward, second launch: combine, re-read the slice, normalise. Slices in
+// the reverse of the first launch's order: its last ones are still in L2.
+template <typename T, int PER>
+__global__ void __launch_bounds__(kThreads, 4)
+instance_norm_split_fwd(const T* __restrict__ x,
+                        const float2* __restrict__ part,
+                        const float* __restrict__ scale,
+                        const float* __restrict__ bias, T* __restrict__ y,
+                        int channels, int hw, int slices, float eps) {
+  const int b = gridDim.x - 1 - blockIdx.x;
+  const int plane = b / slices, s = b % slices;
+  const int n = slice_len<PER>(s, hw);
+  const size_t lo = (size_t)plane * hw + (size_t)s * kSliceOf<PER>;
+  const bool vec = n == kSliceOf<PER> && on16(x + lo) && on16(y + lo);
+  float v[PER];
+  load_slice(x + lo, n, vec, v);
+  __shared__ float stats[2];
+  float mean, inv;
+  split_combine<PER>(part + (size_t)plane * slices, slices, hw, eps, stats,
+                     mean, inv);
+  const float g = scale[plane % channels], bb = bias[plane % channels];
+#pragma unroll
+  for (int i = 0; i < PER; ++i)
+    v[i] = __fadd_rn(__fmul_rn(__fmul_rn(v[i] - mean, inv), g), bb);
+  store_slice(y + lo, n, vec, v);
+}
+
+// backward, first launch: part[b] = (sum x, sum (x - m_s)^2, sum g,
+// sum g (x - m_s)) of slice b, m_s its own mean
+template <typename T, int PER>
+__global__ void __launch_bounds__(kThreads)
+instance_norm_split_bwd_stats(const T* __restrict__ x,
+                              const T* __restrict__ g,
+                              float4* __restrict__ part, int hw, int slices) {
+  __shared__ float scratch[3 * kWarps];
+  const int plane = blockIdx.x / slices, s = blockIdx.x % slices;
+  const int n = slice_len<PER>(s, hw);
+  const size_t lo = (size_t)plane * hw + (size_t)s * kSliceOf<PER>;
+  const bool vec = n == kSliceOf<PER> && on16(x + lo) && on16(g + lo);
+  float xv[PER], gv[PER];
+  load_slice(x + lo, n, vec, xv);
+  load_slice(g + lo, n, vec, gv);
+  float t[1] = {thread_sum(xv)};
+  block_sums(t, scratch);
+  const float m = t[0] / n;
+  float q[3] = {slice_centred<T, PER>(xv, n, vec, m), thread_sum(gv), 0.f};
+#pragma unroll
+  for (int i = 0; i < PER; ++i)
+    q[2] += slice_elem<T>(i, vec) < n ? gv[i] * (xv[i] - m) : 0.f;
+  block_sums(q, scratch);
+  if (threadIdx.x == 0) part[blockIdx.x] = make_float4(t[0], q[0], q[1], q[2]);
+}
+
+// backward, second launch: the plane's mean, inv, sum g and sum g * x_hat
+// from its slices (sum g (x - mean) = sum g (x - m_s) + (m_s - mean) sum g),
+// then dx of the slice; slice 0's CTA writes the plane's two sums
+template <typename T, int PER>
+__global__ void __launch_bounds__(kThreads, 4)
+instance_norm_split_bwd(const T* __restrict__ x, const T* __restrict__ g,
+                        const float4* __restrict__ part,
+                        const float* __restrict__ scale, T* __restrict__ dx,
+                        float* __restrict__ part_scale,
+                        float* __restrict__ part_bias, int channels, int hw,
+                        int slices, float eps) {
+  const int b = gridDim.x - 1 - blockIdx.x;
+  const int plane = b / slices, s = b % slices;
+  const int n = slice_len<PER>(s, hw);
+  const size_t lo = (size_t)plane * hw + (size_t)s * kSliceOf<PER>;
+  const bool vec = n == kSliceOf<PER> && on16(x + lo) && on16(g + lo) &&
+                   on16(dx + lo);
+  float xv[PER], gv[PER];
+  load_slice(x + lo, n, vec, xv);
+  load_slice(g + lo, n, vec, gv);
+  // warp 0 combines the plane's slices in slice order, as split_combine
+  __shared__ float stats[4];
+  if (threadIdx.x < 32) {
+    const float4* pp = part + (size_t)plane * slices;
+    float t = 0.f;
+#pragma unroll 4
+    for (int q = threadIdx.x; q < slices; q += 32) t += pp[q].x;
+    const float mu = warp_sum(t) / hw;
+    float m2 = 0.f, sgq = 0.f, sgc = 0.f;
+#pragma unroll 4
+    for (int q = threadIdx.x; q < slices; q += 32) {
+      const float4 p = pp[q];
+      const float nq = (float)slice_len<PER>(q, hw);
+      const float d = p.x / nq - mu;
+      m2 += p.y + nq * d * d;
+      sgq += p.z;
+      sgc += p.w + d * p.z;
+    }
+    const float iv = rsqrtf(warp_sum(m2) / hw + eps);
+    sgq = warp_sum(sgq);
+    sgc = warp_sum(sgc) * iv;
+    if (threadIdx.x == 0) {
+      stats[0] = mu;
+      stats[1] = iv;
+      stats[2] = sgq;
+      stats[3] = sgc;
+      if (s == 0) {
+        part_scale[plane] = sgc;
+        part_bias[plane] = sgq;
+      }
+    }
+  }
+  __syncthreads();
+  const float mean = stats[0], inv = stats[1], sg = stats[2], sgx = stats[3];
+  const float sc = scale[plane % channels];
+  const float m1 = sc * sg / hw;
+  const float mx = sc * sgx / hw;
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const float xh = (xv[i] - mean) * inv;
+    xv[i] = inv * (__fmul_rn(gv[i], sc) - m1 - xh * mx);
+  }
+  store_slice(dx + lo, n, vec, xv);
+}
+
+// slices of the split form per plane, and the f32 scratch both launches
+// share: (sum, M2) per slice forward, four sums backward
+inline int split_slices(int hw, int per) {
+  return (hw + kThreads * per - 1) / (kThreads * per);
+}
+
+inline long long split_work(int planes, int hw, bool backward, int bytes) {
+  return (long long)planes * split_slices(hw, split_per(bytes, backward)) *
+         (backward ? 4 : 2);
+}
+
+template <typename T>
+cudaError_t launch_fwd_split(const void* x, const float* scale,
+                             const float* bias, void* y, float* work,
+                             int planes, int channels, int hw, float eps,
+                             cudaStream_t stream) {
+  constexpr int PER = split_per(sizeof(T), false);
+  const int slices = split_slices(hw, PER);
+  if ((long long)planes * slices > 0x7fffffffLL || work == nullptr)
+    return cudaErrorInvalidValue;
+  float2* part = reinterpret_cast<float2*>(work);
+  instance_norm_split_stats<T, PER><<<planes * slices, kThreads, 0, stream>>>(
+      (const T*)x, part, hw, slices);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  instance_norm_split_fwd<T, PER><<<planes * slices, kThreads, 0, stream>>>(
+      (const T*)x, part, scale, bias, (T*)y, channels, hw, slices, eps);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bwd_split(const void* x, const void* g, const float* scale,
+                             void* dx, float* part, float* work,
+                             float* dscale, float* dbias, int planes,
+                             int channels, int hw, float eps,
+                             cudaStream_t stream) {
+  constexpr int PER = split_per(sizeof(T), true);
+  const int slices = split_slices(hw, PER);
+  if ((long long)planes * slices > 0x7fffffffLL || work == nullptr)
+    return cudaErrorInvalidValue;
+  float4* sums = reinterpret_cast<float4*>(work);
+  instance_norm_split_bwd_stats<T, PER>
+      <<<planes * slices, kThreads, 0, stream>>>((const T*)x, (const T*)g,
+                                                 sums, hw, slices);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  instance_norm_split_bwd<T, PER><<<planes * slices, kThreads, 0, stream>>>(
+      (const T*)x, (const T*)g, sums, scale, (T*)dx, part, part + planes,
+      channels, hw, slices, eps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_bwd_reduce(part, dscale, dbias, planes, channels, stream);
 }
 
 // ---- the cluster form (form 2): a plane split across a thread-block
@@ -524,10 +1062,6 @@ __device__ __forceinline__ void cluster_slice(int hw, int parts, int rank,
   const int chunk = ((hw + parts - 1) / parts + 7) / 8 * 8;
   lo = rank * chunk < hw ? rank * chunk : hw;
   hi = lo + chunk < hw ? lo + chunk : hw;
-}
-
-__device__ __forceinline__ bool on16(const void* p) {
-  return ((uintptr_t)p & 15u) == 0;
 }
 
 // mean and inv of the cluster's plane; this CTA's slice [lo, hi) staged in
@@ -760,83 +1294,125 @@ cudaError_t launch_bwd_cluster(const void* x, const void* g,
 bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
 
 // The form for planes of hw elements at these pointers: 0 vector, 1
-// general, 2 cluster, 3 general with the part past kMaxCluster * kMaxPlane
-// streamed (the code the entries report; 3 launches form 1's kernels).
+// general, 2 cluster, 3 split, 4 warp (the code the entries report).
 int pick_form(int hw, const void* a, const void* b, const void* c) {
   if (hw > kMaxPlane)
     return hw <= kMaxCluster * kMaxPlane ? 2 : 3;
-  return hw % 8 == 0 && aligned16(a) && aligned16(b) && aligned16(c) ? 0 : 1;
+  if (hw % 8 == 0 && aligned16(a) && aligned16(b) && aligned16(c)) return 0;
+  return hw <= kWarpPlane ? 4 : 1;
+}
+
+template <typename T>
+cudaError_t launch_fwd_form(int form, const void* x, const float* sc,
+                            const float* bi, void* y, float* work, int planes,
+                            int channels, int hw, float eps,
+                            cudaStream_t s) {
+  switch (form) {
+    case 0: return launch<T>(x, sc, bi, y, planes, channels, hw, eps, s);
+    case 1: return launch_any<T>(x, sc, bi, y, planes, channels, hw, eps, s);
+    case 2:
+      return launch_fwd_cluster<T>(x, sc, bi, y, planes, channels, hw, eps, s);
+    case 3:
+      return launch_fwd_split<T>(x, sc, bi, y, work, planes, channels, hw,
+                                 eps, s);
+    default:
+      return launch_warp<T>(false, x, nullptr, sc, bi, y, nullptr, planes,
+                            channels, hw, eps, s);
+  }
+}
+
+template <typename T>
+cudaError_t launch_bwd_form(int form, const void* x, const void* g,
+                            const float* sc, void* dx, float* part,
+                            float* work, float* ds, float* db, int planes,
+                            int channels, int hw, float eps, cudaStream_t s) {
+  switch (form) {
+    case 0:
+      return launch_bwd<T>(x, g, sc, dx, part, ds, db, planes, channels, hw,
+                           eps, s);
+    case 1:
+      return launch_bwd_any<T>(x, g, sc, dx, part, ds, db, planes, channels,
+                               hw, eps, s);
+    case 2:
+      return launch_bwd_cluster<T>(x, g, sc, dx, part, ds, db, planes,
+                                   channels, hw, eps, s);
+    case 3:
+      return launch_bwd_split<T>(x, g, sc, dx, part, work, ds, db, planes,
+                                 channels, hw, eps, s);
+    default: {
+      const cudaError_t err = launch_warp<T>(true, x, g, sc, nullptr, dx,
+                                             part, planes, channels, hw, eps,
+                                             s);
+      if (err != cudaSuccess) return err;
+      return launch_bwd_reduce(part, ds, db, planes, channels, s);
+    }
+  }
+}
+
+bool bad_args(int planes, int channels, int hw, int dtype) {
+  return hw <= 0 || planes <= 0 || channels <= 0 || planes % channels ||
+         (dtype != 0 && dtype != 1);
 }
 
 }  // namespace
 
+// f32 elements of the scratch `work` the entries below need for planes of
+// hw elements of a dtype (0 = f32, 1 = bf16): the split form's per-slice
+// sums, 0 for every other form; -1 past an int
+extern "C" int scflow_instance_norm_work(int planes, int hw, int backward,
+                                         int dtype) {
+  if (planes <= 0 || hw <= 0 || pick_form(hw, nullptr, nullptr, nullptr) != 3)
+    return 0;
+  const long long n =
+      split_work(planes, hw, backward != 0, dtype == 1 ? 2 : 4);
+  return n > 0x7fffffffLL ? -1 : (int)n;
+}
+
 // x, y (planes, hw) contiguous; dtype 0 = f32, 1 = bf16; scale, bias
-// (channels,) f32. Any hw >= 1 and any element-aligned base; *form gets
-// the form launched (pick_form's code).
+// (channels,) f32; work: scflow_instance_norm_work(planes, hw, 0, dtype)
+// f32 of scratch (may be null where that is 0). Any hw >= 1 and any
+// element-aligned base; *form gets the form launched (pick_form's code).
 extern "C" int scflow_instance_norm_fwd(const void* x, const void* scale,
-                                        const void* bias, void* y, int planes,
-                                        int channels, int hw, float eps,
-                                        int dtype, int* form, void* stream) {
-  if (hw <= 0 || planes <= 0 || channels <= 0 || planes % channels ||
-      (dtype != 0 && dtype != 1))
-    return (int)cudaErrorInvalidValue;
+                                        const void* bias, void* y, void* work,
+                                        int planes, int channels, int hw,
+                                        float eps, int dtype, int* form,
+                                        void* stream) {
+  if (bad_args(planes, channels, hw, dtype)) return (int)cudaErrorInvalidValue;
   *form = pick_form(hw, x, y, y);
-  const cudaStream_t s = (cudaStream_t)stream;
   const float* sc = (const float*)scale;
   const float* bi = (const float*)bias;
-  if (*form == 0)
-    return dtype == 0
-               ? (int)launch<float>(x, sc, bi, y, planes, channels, hw, eps, s)
-               : (int)launch<__nv_bfloat16>(x, sc, bi, y, planes, channels,
-                                            hw, eps, s);
-  if (*form == 2)
-    return dtype == 0
-               ? (int)launch_fwd_cluster<float>(x, sc, bi, y, planes,
-                                                channels, hw, eps, s)
-               : (int)launch_fwd_cluster<__nv_bfloat16>(x, sc, bi, y, planes,
-                                                        channels, hw, eps, s);
+  float* wk = (float*)work;
+  const cudaStream_t s = (cudaStream_t)stream;
   return dtype == 0
-             ? (int)launch_any<float>(x, sc, bi, y, planes, channels, hw, eps,
-                                      s)
-             : (int)launch_any<__nv_bfloat16>(x, sc, bi, y, planes, channels,
-                                              hw, eps, s);
+             ? (int)launch_fwd_form<float>(*form, x, sc, bi, y, wk, planes,
+                                           channels, hw, eps, s)
+             : (int)launch_fwd_form<__nv_bfloat16>(*form, x, sc, bi, y, wk,
+                                                   planes, channels, hw, eps,
+                                                   s);
 }
 
 // x, g, dx (planes, hw) contiguous, of one dtype (0 = f32, 1 = bf16);
 // scale, dscale, dbias (channels,) f32; part (2, planes) f32 scratch for
-// the per-plane sums. *form as for the forward (the vector form needs x,
-// g and dx aligned).
+// the per-plane sums; work as for the forward, with backward = 1. *form
+// as for the forward (the vector form needs x, g and dx aligned).
 extern "C" int scflow_instance_norm_bwd(const void* x, const void* g,
                                         const void* scale, void* dx,
-                                        void* part, void* dscale, void* dbias,
-                                        int planes, int channels, int hw,
-                                        float eps, int dtype, int* form,
-                                        void* stream) {
-  if (hw <= 0 || planes <= 0 || channels <= 0 || planes % channels ||
-      (dtype != 0 && dtype != 1))
-    return (int)cudaErrorInvalidValue;
+                                        void* part, void* work, void* dscale,
+                                        void* dbias, int planes, int channels,
+                                        int hw, float eps, int dtype,
+                                        int* form, void* stream) {
+  if (bad_args(planes, channels, hw, dtype)) return (int)cudaErrorInvalidValue;
   *form = pick_form(hw, x, g, dx);
-  const cudaStream_t s = (cudaStream_t)stream;
   const float* sc = (const float*)scale;
   float* pa = (float*)part;
+  float* wk = (float*)work;
   float* ds = (float*)dscale;
   float* db = (float*)dbias;
-  if (*form == 0)
-    return dtype == 0
-               ? (int)launch_bwd<float>(x, g, sc, dx, pa, ds, db, planes,
-                                        channels, hw, eps, s)
-               : (int)launch_bwd<__nv_bfloat16>(x, g, sc, dx, pa, ds, db,
-                                                planes, channels, hw, eps, s);
-  if (*form == 2)
-    return dtype == 0
-               ? (int)launch_bwd_cluster<float>(x, g, sc, dx, pa, ds, db,
-                                                planes, channels, hw, eps, s)
-               : (int)launch_bwd_cluster<__nv_bfloat16>(
-                     x, g, sc, dx, pa, ds, db, planes, channels, hw, eps, s);
+  const cudaStream_t s = (cudaStream_t)stream;
   return dtype == 0
-             ? (int)launch_bwd_any<float>(x, g, sc, dx, pa, ds, db, planes,
-                                          channels, hw, eps, s)
-             : (int)launch_bwd_any<__nv_bfloat16>(x, g, sc, dx, pa, ds, db,
-                                                  planes, channels, hw, eps,
-                                                  s);
+             ? (int)launch_bwd_form<float>(*form, x, g, sc, dx, pa, wk, ds,
+                                           db, planes, channels, hw, eps, s)
+             : (int)launch_bwd_form<__nv_bfloat16>(*form, x, g, sc, dx, pa,
+                                                   wk, ds, db, planes,
+                                                   channels, hw, eps, s);
 }

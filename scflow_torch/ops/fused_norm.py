@@ -21,11 +21,13 @@ from . import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the kernels' forms by the code their entry reports: it picks the vector
-# form (one CTA per plane, 16-byte vectors), the general form (scalar
-# accesses, any plane) or the cluster form (a plane over 2-8 CTAs) from
-# the plane's size and the pointers (``csrc/instance_norm.cu``); code 3 is
-# the general form with the part of a plane past a cluster's streamed
-_FORMS = ("vector", "general", "cluster", "general")
+# form (one CTA per plane, 16-byte vectors), the warp form (one warp per
+# small plane, in registers), the general form (one CTA per plane, scalar
+# accesses, any plane up to one CTA's shared memory), the cluster form (a
+# plane over 2-8 CTAs) or the split form (a plane past a cluster cut into
+# slices, two launches) from the plane's size and the pointers
+# (``csrc/instance_norm.cu``)
+_FORMS = ("vector", "general", "cluster", "split", "warp")
 
 
 def _stats_dtype(x: torch.Tensor) -> torch.dtype:
@@ -87,14 +89,32 @@ def _check_plane(x: torch.Tensor, what: str) -> None:
 
 def _count(fn, code: int, dtype: torch.dtype) -> None:
     """One launch of ``fn`` of the form its entry reported: ``launches``,
-    and ``form_launches[form, dtype]`` with form ``vector``, ``general``
-    or ``cluster`` and dtype ``f32`` or ``bf16``; a general-form launch
-    that streamed also counts under ``("streamed", dtype)``."""
+    and ``form_launches[form, dtype]`` with form one of ``_FORMS`` and
+    dtype ``f32`` or ``bf16``."""
     dt = "bf16" if dtype == torch.bfloat16 else "f32"
     fn.launches += 1
     fn.form_launches[_FORMS[code], dt] += 1
-    if code == 3:
-        fn.form_launches["streamed", dt] += 1
+
+
+_WORK_SIZES: dict = {}
+
+
+def _work(x: torch.Tensor, backward: bool):
+    """The f32 scratch the entry needs for x's planes, as it reports it
+    (the split form's per-slice sums), or None where it needs none. The
+    size is asked once per (planes, H·W, direction, dtype)."""
+    n, c, h, w = x.shape
+    key = (n * c, h * w, int(backward), _DTYPES[x.dtype])
+    if key not in _WORK_SIZES:
+        i = ctypes.c_int
+        _WORK_SIZES[key] = _kernel_entry("scflow_instance_norm_work",
+                                         [i, i, i, i])(*key)
+    size = _WORK_SIZES[key]
+    if size < 0:
+        raise ValueError(f"instance norm: {tuple(x.shape)} needs more "
+                         f"scratch than an int counts")
+    return (torch.empty(size, device=x.device, dtype=torch.float32)
+            if size else None)
 
 
 def _check_channel_vectors(x: torch.Tensor, *vs: torch.Tensor) -> None:
@@ -119,13 +139,15 @@ def instance_norm_fwd(x: torch.Tensor, scale: torch.Tensor,
     _check_channel_vectors(x, scale, bias)
     n, c, h, w = x.shape
     y = torch.empty_like(x)
+    work = _work(x, backward=False)
     form = ctypes.c_int(-1)
     p, i = ctypes.c_void_p, ctypes.c_int
     err = _kernel_entry("scflow_instance_norm_fwd",
-                        [p, p, p, p, i, i, i, ctypes.c_float, i,
+                        [p, p, p, p, p, i, i, i, ctypes.c_float, i,
                          ctypes.POINTER(i), p])(
         x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
-        n * c, c, h * w, eps, _DTYPES[x.dtype], ctypes.byref(form),
+        None if work is None else work.data_ptr(), n * c, c, h * w, eps,
+        _DTYPES[x.dtype], ctypes.byref(form),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "instance_norm_fwd")
     _count(instance_norm_fwd, form.value, x.dtype)
@@ -152,14 +174,16 @@ def instance_norm_bwd(x: torch.Tensor, g: torch.Tensor, scale: torch.Tensor,
     part = torch.empty(2, n * c, device=x.device, dtype=torch.float32)
     dscale = torch.empty(c, device=x.device, dtype=torch.float32)
     dbias = torch.empty_like(dscale)
+    work = _work(x, backward=True)
     form = ctypes.c_int(-1)
     p, i = ctypes.c_void_p, ctypes.c_int
     err = _kernel_entry("scflow_instance_norm_bwd",
-                        [p, p, p, p, p, p, p, i, i, i, ctypes.c_float, i,
+                        [p, p, p, p, p, p, p, p, i, i, i, ctypes.c_float, i,
                          ctypes.POINTER(i), p])(
         x.data_ptr(), g.data_ptr(), scale.data_ptr(), dx.data_ptr(),
-        part.data_ptr(), dscale.data_ptr(), dbias.data_ptr(), n * c, c,
-        h * w, eps, _DTYPES[x.dtype], ctypes.byref(form),
+        part.data_ptr(), None if work is None else work.data_ptr(),
+        dscale.data_ptr(), dbias.data_ptr(), n * c, c, h * w, eps,
+        _DTYPES[x.dtype], ctypes.byref(form),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "instance_norm_bwd")
     _count(instance_norm_bwd, form.value, x.dtype)

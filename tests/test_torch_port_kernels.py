@@ -7,6 +7,8 @@ Imports nothing of JAX. On a machine without JAX, leave out
 
 Without an NVIDIA GPU every test here skips.
 """
+import math
+
 import pytest
 import torch
 
@@ -136,16 +138,24 @@ def test_instance_norm_bwd_kernel_refuses(dev):
 
 
 # planes the JAX function takes beside the encoders': ResNet-50's at 224²
-# (7², 14², 28²), odd ones, one element, planes larger than one CTA's
+# (7², 14², 28²), odd ones, one element, the warp form's cap (16×32 at an
+# offset) and the first plane past it (23²), planes larger than one CTA's
 # shared memory (the 240² and 256² stems of 480- and 512-pixel crops, the
-# half-resolution plane of a 480×640 frame: the cluster form) and one
-# larger than a cluster's (streamed)
+# half-resolution plane of a 480×640 frame: the cluster form), planes past
+# a cluster (700², 1024²: the split form), and 700² of values 1e3 ± 1
+# (n, c, h, w[, loc]: values loc ± 1, loc ± LOC_SPREAD_BF16 in bf16)
 # the kernel's documented limits: one CTA stages at most 57,344 f32
-# elements; a cluster of 8 CTAs at most 8 times that
-ONE_CTA_PLANE, CLUSTER_PLANE = 56 * 1024, 8 * 56 * 1024
+# elements; a cluster of 8 CTAs at most 8 times that; a warp holds at most
+# 512 (16 a lane)
+ONE_CTA_PLANE, CLUSTER_PLANE, WARP_PLANE = 56 * 1024, 8 * 56 * 1024, 512
 ANY_PLANES = [(2, 64, 7, 7), (2, 32, 14, 14), (2, 16, 28, 28), (3, 5, 13, 17),
               (2, 3, 1, 1), (1, 2, 5, 5), (1, 3, 240, 240), (1, 2, 256, 256),
-              (1, 2, 240, 320), (1, 1, 700, 700)]
+              (1, 2, 240, 320), (1, 1, 700, 700), (2, 4, 16, 32),
+              (2, 4, 23, 23), (1, 2, 1024, 1024), (1, 1, 700, 700, 1e3)]
+FORMS = ("vector", "general", "cluster", "split", "warp")
+# bf16's step at 1e3 is 4: 1e3 ± 1 would round to a constant plane (a
+# variance of 0, which checks nothing), 1e3 ± 64 keeps 33 distinct values
+LOC_SPREAD_BF16 = 64.0
 
 
 def offset_view(t, offset):
@@ -157,35 +167,80 @@ def offset_view(t, offset):
     return view
 
 
+def expected_form(hw, offset):
+    """The form the entry picks, restated from its documented limits."""
+    if hw > CLUSTER_PLANE:
+        return "split"
+    if hw > ONE_CTA_PLANE:
+        return "cluster"
+    if hw % 8 == 0 and not offset:
+        return "vector"
+    return "warp" if hw <= WARP_PLANE else "general"
+
+
+def norm64(x, g, scale, bias, shift=0.0, eps=1e-5):
+    """Forward and backward in float64 with each plane's mean moved by
+    ``shift``: y, dx, dscale, dbias."""
+    x64, g64 = x.double(), g.double()
+    mu = x64.mean((2, 3), keepdim=True) + shift
+    inv = torch.rsqrt(((x64 - mu) ** 2).mean((2, 3), keepdim=True) + eps)
+    xhat = (x64 - mu) * inv
+    s = scale.double()[:, None, None]
+    gs = g64 * s
+    dx = inv * (gs - gs.mean((2, 3), keepdim=True)
+                - xhat * (gs * xhat).mean((2, 3), keepdim=True))
+    return (xhat * s + bias.double()[:, None, None], dx,
+            (g64 * xhat).sum((0, 2, 3)), g64.sum((0, 2, 3)))
+
+
+def near64(x, g, scale, bias):
+    """The float64 results and twice the most that moving each plane's
+    mean by ±δ moves them, δ = (⌈log2 H·W⌉ + 1)·2^-24·mean|x|: an f32 sum
+    rounds at most ⌈log2 n⌉ times along a pairwise path, each by u = 2^-24
+    of its partial sum, and the division once more (1.2e-3 at 700² planes
+    of 1e3 ± 1, whose variance is 1/3)."""
+    k = math.ceil(math.log2(x.shape[2] * x.shape[3])) + 1
+    delta = k * 2.0 ** -24 * x.double().abs().mean((2, 3), keepdim=True)
+    exact = norm64(x, g, scale, bias)
+    moved = [norm64(x, g, scale, bias, sign * delta) for sign in (1.0, -1.0)]
+    return exact, [2 * torch.maximum((p - e).abs(), (m - e).abs())
+                   for e, p, m in zip(exact, *moved)]
+
+
+def bf16_step(v):
+    return (v.abs().clamp_min(2.0 ** -126).log2().floor() - 7).exp2()
+
+
 @pytest.mark.parametrize("offset", [0, 1])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", ANY_PLANES)
 def test_instance_norm_kernel_any_plane(dev, dtype, shape, offset):
     """Forward and backward kernels at every plane size and base: the
     vector form where it applies, the cluster form for planes past one
-    CTA's shared memory, else the general form (streamed past a
-    cluster's), counted by form and dtype, within the encoders' bounds."""
-    n, c, h, w = shape
+    CTA's shared memory, the split form past a cluster's, else the warp
+    form up to its cap and the general form past it, counted by form and
+    dtype, within the encoders' bounds; dx is 0 on a 1-element plane.
+    Values 1e3 ± 1 (± 64 in bf16) are held to float64 within ``near64``'s
+    bound beside those, a bound that stays a small part of y and dx."""
+    n, c, h, w, *loc = shape
     gen = torch.Generator().manual_seed(h * w + offset)
-    x = offset_view((torch.randn(shape, generator=gen) * 2 + 0.5).to(dev, dtype),
+    spread = LOC_SPREAD_BF16 if dtype == torch.bfloat16 else 1.0
+    values = (torch.randn(n, c, h, w, generator=gen) * 2 + 0.5 if not loc
+              else loc[0] + (torch.rand(n, c, h, w, generator=gen) * 2 - 1)
+              * spread)
+    x = offset_view(values.to(dev, dtype), offset)
+    g = offset_view(torch.randn(n, c, h, w, generator=gen).to(dev, dtype),
                     offset)
-    g = offset_view(torch.randn(shape, generator=gen).to(dev, dtype), offset)
     scale = (1 + 0.3 * torch.randn(c, generator=gen)).to(dev)
     bias = (0.2 * torch.randn(c, generator=gen)).to(dev)
     assert x.is_contiguous() and x.storage_offset() == offset
-    hw = h * w
-    cluster = ONE_CTA_PLANE < hw <= CLUSTER_PLANE
-    general = not cluster and (bool(offset) or hw % 8 != 0
-                               or hw > ONE_CTA_PLANE)
-    streamed = hw > CLUSTER_PLANE
-    vector = not (general or cluster)
+    form = expected_form(h * w, offset)
     dt = "f32" if dtype == torch.float32 else "bf16"
     other = "bf16" if dtype == torch.float32 else "f32"
 
     def by_form():
         return [(fn.launches, *(fn.form_launches[f, d] for d in (dt, other)
-                                for f in ("vector", "general", "cluster",
-                                          "streamed")))
+                                for f in FORMS))
                 for fn in (instance_norm_fwd, instance_norm_bwd)]
 
     before = by_form()
@@ -194,15 +249,54 @@ def test_instance_norm_kernel_any_plane(dev, dtype, shape, offset):
     torch.cuda.synchronize()
     for now, was in zip(by_form(), before):
         assert [a - b for a, b in zip(now, was)] == [
-            1, vector, general, cluster, streamed, 0, 0, 0, 0]
+            1, *(f == form for f in FORMS), *(0 for _ in FORMS)]
+    if h * w == 1:
+        assert (got[0] == 0).all()
+    if loc:
+        (y64, dx64, ds64, db64), (my, mdx, mds, _) = near64(x, g, scale, bias)
+        assert my.max() < 0.05 * y64.abs().mean()
+        assert mdx.max() < 0.05 * dx64.abs().mean()
+        assert (mds < 0.05 * ds64.abs().max()).all()
+        step = ((lambda v: 1e-5 * v.abs()) if dtype == torch.float32
+                else bf16_step)
+        assert ((y.double() - y64).abs() <= 1e-5 + step(y64) + my).all()
+        dx, dscale, dbias = got
+        assert ((dx.double() - dx64).abs() <= 1e-5 + step(dx64) + mdx).all()
+        mag_s = (g.double() * norm64(x, g, scale, torch.zeros_like(bias))[0]
+                 / scale.double()[:, None, None]).abs().sum((0, 2, 3))
+        assert ((dscale.double() - ds64).abs() <= 1e-5 * mag_s + mds).all()
+        assert ((dbias.double() - db64).abs()
+                <= 1e-5 * g.double().abs().sum((0, 2, 3))).all()
+        return
     want = instance_norm_reference(x, scale, bias).float()
     diff = (y.float() - want).abs()
     if dtype == torch.float32:
         assert (diff <= 1e-5 + 1e-5 * want.abs()).all(), diff.max()
     else:
-        ulp = (want.abs().clamp_min(2.0 ** -126).log2().floor() - 7).exp2()
-        assert (diff <= 1e-5 + ulp).all(), diff.max()
+        assert (diff <= 1e-5 + bf16_step(want)).all(), diff.max()
     assert_bwd_close(got, instance_norm_bwd_reference(x, g, scale), x, g)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_instance_norm_split_repeats_bit_for_bit(dev, dtype):
+    """The split form (two launches forward, three backward, no float
+    atomics): two forward and two backward calls give equal bits."""
+    gen = torch.Generator().manual_seed(3)
+    x = (torch.randn(2, 3, 700, 700, generator=gen) * 2 + 0.5).to(dev, dtype)
+    g = torch.randn(2, 3, 700, 700, generator=gen).to(dev, dtype)
+    scale = (1 + 0.3 * torch.randn(3, generator=gen)).to(dev)
+    bias = (0.2 * torch.randn(3, generator=gen)).to(dev)
+    dt = "f32" if dtype == torch.float32 else "bf16"
+    f0 = instance_norm_fwd.form_launches["split", dt]
+    b0 = instance_norm_bwd.form_launches["split", dt]
+    ys = [instance_norm_fwd(x, scale, bias) for _ in range(2)]
+    grads = [instance_norm_bwd(x, g, scale) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert instance_norm_fwd.form_launches["split", dt] == f0 + 2
+    assert instance_norm_bwd.form_launches["split", dt] == b0 + 2
+    assert torch.equal(ys[0], ys[1])
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
 
 
 def scene_inputs(dev, n=8, classes=5, subdivisions=3, size=256, seed=0,

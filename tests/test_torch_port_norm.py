@@ -2,6 +2,8 @@
 package's ``_reference_in`` (what ``FusedInstanceNorm`` runs there) and
 ``instance_norm``. On the CPU the port runs the plain version; the kernel
 itself is held against it on the card in test_torch_port_kernels.py."""
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,6 +29,45 @@ def inputs(c, h=12, w=16, n=2, seed=0):
     return x, g, b
 
 
+# planes beside the encoders' that the kernels' other forms serve (n, c,
+# h, w, loc): the warp form's 1×1, 7², 13×17 and 14², the split form's
+# 700²; values loc ± 1 = 1e3 ± 1 (loc 0: N(0.5, 2)) are the case that
+# breaks E[x²] − μ² and that the split form's combination must survive
+PLANES = {"1x1": (2, 3, 1, 1, 0.0), "7x7": (2, 16, 7, 7, 0.0),
+          "13x17": (2, 5, 13, 17, 0.0), "14x14": (2, 8, 14, 14, 0.0),
+          "700x700": (1, 1, 700, 700, 0.0), "1e3+-1": (1, 2, 700, 700, 1e3)}
+# the spread of the loc plane's values by input type: bf16's step at 1e3
+# is 4, so 1e3 ± 1 would round to a constant plane (a variance of 0, which
+# checks nothing); 1e3 ± 64 keeps 33 distinct values
+LOC_SPREAD = {"float32": 1.0, "bfloat16": 64.0}
+
+
+def case_inputs(case, seed, spread=1.0):
+    """``inputs`` at an encoder width (an int) or at a ``PLANES`` plane;
+    a loc plane's values are loc ± ``spread``."""
+    if case not in PLANES:
+        return inputs(case, seed=seed)
+    n, c, h, w, loc = PLANES[case]
+    x, g, b = inputs(c, h, w, n, seed)
+    if loc:
+        x = (loc + spread * np.random.default_rng(seed).uniform(
+            -1, 1, x.shape)).astype(np.float32)
+    return x, g, b
+
+
+def mean_rounding(x: np.ndarray) -> np.ndarray:
+    """Bound on an f32 mean's error over axes (1, 2) of NHWC ``x``: a
+    pairwise f32 sum of n terms rounds ⌈log2 n⌉ times along any path, each
+    time by at most u = 2^-24 of the partial sum, so the sum is off by at
+    most ⌈log2 n⌉·u·Σ|x|; the division rounds once more. (⌈log2 n⌉ + 1)·u
+    ·mean|x| per (sample, channel): 20 u·1e3 = 1.2e-3 at 700² planes of
+    1e3 ± 1, where the variance is 1/3."""
+    n = x.shape[1] * x.shape[2]
+    k = math.ceil(math.log2(n)) + 1
+    return k * 2.0 ** -24 * np.abs(x.astype(np.float64)).mean(
+        (1, 2), keepdims=True)
+
+
 def to_nchw(x):
     return torch.from_numpy(np.ascontiguousarray(x.transpose(0, 3, 1, 2)))
 
@@ -37,17 +78,53 @@ def bf16_ulp(v: np.ndarray) -> np.ndarray:
     return 2.0 ** (e - 7)
 
 
-@pytest.mark.parametrize("c", [64, 96, 128])      # the encoder widths
+def norm64(x, gy, s, b, shift=0.0, eps=1e-5):
+    """The forward and ``_bwd``'s backward in float64 on NHWC inputs, with
+    each plane's mean moved by ``shift``: y, dx, dscale, dbias."""
+    x64, g64 = x.astype(np.float64), gy.astype(np.float64)
+    mu = x64.mean((1, 2), keepdims=True) + shift
+    inv = 1.0 / np.sqrt(((x64 - mu) ** 2).mean((1, 2), keepdims=True) + eps)
+    xhat = (x64 - mu) * inv
+    gs = g64 * s
+    dx = inv * (gs - gs.mean((1, 2), keepdims=True)
+                - xhat * (gs * xhat).mean((1, 2), keepdims=True))
+    return (xhat * s + b, dx, (g64 * xhat).sum((0, 1, 2)),
+            g64.sum((0, 1, 2)))
+
+
+def near64(x, gy, s, b):
+    """The float64 results and, per result, twice the most that moving each
+    plane's mean by ±``mean_rounding`` moves them: what an f32 mean can
+    cost at that magnitude (the factor 2 covers what lies between)."""
+    exact = norm64(x, gy, s, b)
+    delta = mean_rounding(x)
+    moved = [norm64(x, gy, s, b, sign * delta) for sign in (1.0, -1.0)]
+    return exact, [2 * np.maximum(np.abs(p - e), np.abs(m - e))
+                   for e, p, m in zip(exact, *moved)]
+
+
+# the encoder widths (12×16 planes), then PLANES
+@pytest.mark.parametrize("c", [64, 96, 128, *PLANES])
 def test_plain_path_matches_jax(c):
-    # f32 statistics on both sides, sums in different orders: 1e-5
-    x, g, b = inputs(c)
+    """f32 statistics on both sides, sums in different orders: 1e-5. At
+    1e3 ± 1 an f32 mean is off by up to ``mean_rounding`` (JAX's CPU sum
+    by ~11 ulps of 1e3), which y carries times inv·|scale| against 1e-5:
+    both sides are held to the float64 forward within that."""
+    x, g, b = case_inputs(c, 0)
     got = instance_norm(to_nchw(x), torch.from_numpy(g), torch.from_numpy(b))
     got = got.numpy().transpose(0, 2, 3, 1)
-    for want in (_reference_in(jnp.asarray(x), jnp.asarray(g),
-                               jnp.asarray(b), 1e-5),
-                 jax_instance_norm(jnp.asarray(x), jnp.asarray(g),
-                                   jnp.asarray(b), 1e-5)):
-        np.testing.assert_allclose(got, np.asarray(want), atol=1e-5, rtol=1e-5)
+    wants = [np.asarray(f(jnp.asarray(x), jnp.asarray(g), jnp.asarray(b),
+                          1e-5)) for f in (_reference_in, jax_instance_norm)]
+    if c in PLANES and PLANES[c][4]:
+        (y64, *_), (moved, *_) = near64(x, np.zeros_like(x), g, b)
+        # the bound stays a small part of the output, so it holds y
+        assert moved.max() < 0.05 * np.abs(y64).mean()
+        allow = 1e-5 + 1e-5 * np.abs(y64) + moved
+        for y in (got, *wants):
+            assert (np.abs(y - y64) <= allow).all(), np.abs(y - y64).max()
+        return
+    for want in wants:
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
 
 
 def test_bf16_keeps_dtype_within_one_ulp():
@@ -91,16 +168,20 @@ def test_kernel_wrapper_refuses_grad_and_cpu():
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("c", [64, 96, 128])
+@pytest.mark.parametrize("c", [64, 96, 128, *PLANES])
 def test_bwd_reference_matches_jax_vjp(c, dtype):
     """The plain backward against ``jax.vjp`` of the JAX package's
     ``instance_norm`` (its ``_bwd`` under ``custom_vjp``). f32: 1e-5 (sums
     in another order). bf16: both round the f32 result once, so one bf16
     step plus that spread for dx; dscale/dbias are f32 sums of bf16-rounded
-    terms, 1e-5 of the sum of their magnitudes."""
+    terms, 1e-5 of the sum of their magnitudes. At 1e3 ± 1 (1e3 ± 64 in
+    bf16: ``LOC_SPREAD``) both sides against the float64 backward on the
+    same (rounded) inputs, beside those bounds within ``near64``'s, which
+    stays a small part of dx."""
     import jax
 
-    x, s, b = inputs(c, seed=3)
+    x, s, b = case_inputs(c, 3, LOC_SPREAD[dtype])
+    channels = x.shape[-1]
     gy = np.random.default_rng(4).normal(size=x.shape).astype(np.float32)
     jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
     xj, gj = jnp.asarray(x, jdt), jnp.asarray(gy, jdt)
@@ -113,16 +194,29 @@ def test_bwd_reference_matches_jax_vjp(c, dtype):
     dx, dscale, dbias = instance_norm_bwd_reference(xt, gt, torch.from_numpy(s))
     assert dx.dtype == tdt and dscale.dtype == torch.float32
     dx = dx.float().numpy().transpose(0, 2, 3, 1)
+    gf = gt.float()
+    mag = {"scale": (gf * instance_norm_reference(
+        xt.float(), torch.ones(channels), torch.zeros(channels))
+                     ).abs().sum((0, 2, 3)).numpy(),
+           "bias": gf.abs().sum((0, 2, 3)).numpy()}
+    if c in PLANES and PLANES[c][4]:
+        xr, gr = (np.asarray(v, np.float32) for v in (xj, gj))
+        (_, dx64, ds64, db64), (_, mdx, mds, _) = near64(xr, gr, s, b)
+        assert mdx.max() < 0.05 * np.abs(dx64).mean()
+        assert (mds < 0.05 * np.abs(ds64).max()).all()
+        step = 1e-5 * np.abs(dx64) if dtype == "float32" else bf16_ulp(dx64)
+        for got_dx, got_s, got_b in ((dx, dscale.numpy(), dbias.numpy()),
+                                     want):
+            assert (np.abs(got_dx - dx64) <= 1e-5 + step + mdx).all()
+            assert (np.abs(got_s - ds64) <= 1e-5 * mag["scale"] + mds).all()
+            assert (np.abs(got_b - db64) <= 1e-5 * mag["bias"]).all()
+        return
     if dtype == "float32":
         np.testing.assert_allclose(dx, want[0], atol=1e-5, rtol=1e-5)
     else:
         assert (np.abs(dx - want[0]) <= 1e-5 + bf16_ulp(want[0])).all()
-    gf = gt.float()
-    mag = {"scale": (gf * instance_norm_reference(
-        xt.float(), torch.ones(c), torch.zeros(c))).abs().sum((0, 2, 3)),
-        "bias": gf.abs().sum((0, 2, 3))}
     for got, ref, key in ((dscale, want[1], "scale"), (dbias, want[2], "bias")):
-        assert (np.abs(got.numpy() - ref) <= 1e-5 * mag[key].numpy()).all()
+        assert (np.abs(got.numpy() - ref) <= 1e-5 * mag[key]).all()
 
 
 def test_function_gradcheck_float64():
