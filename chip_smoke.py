@@ -8,7 +8,8 @@ Phases (each prints one JSON line; any failed check raises):
   build   compile the hand-written kernels (``scflow_torch/ops/csrc``).
   k1      tile rasterizer kernel vs its plain PyTorch version on the main
           path's render (batch 32, 256², 21-class bench bank): face ids, z
-          and attributes must be bit-equal; times.
+          and attributes must be bit-equal; times (a call is two launches,
+          the binning and the raster pass, counted once).
   k2      instance-norm kernel vs its plain version at the encoders' three
           shapes (batch 32), f32 and bf16; times, and F.instance_norm's,
           each call on an input copy that is not in L2.
@@ -22,7 +23,11 @@ Phases (each prints one JSON line; any failed check raises):
           CPU must agree; one full-res step and one 2-pass step.
   profile the main path's stages timed alone (one call each, host time
           included; the render's kernel time and launches under
-          torch.profiler), and the step's kernels by device time.
+          torch.profiler), and the step's kernels by device time. Every
+          profiled figure of this script outside k2_kernels comes from a
+          trace checked against the wrappers' launches (``checked_trace``:
+          every K1 and K2 kernel, as often as launched; retaken up to 3
+          times, else the figure is null beside ``trace_lost``).
   paths   one full-res eval step and one 2-pass eval step.
   k2_bwd  instance-norm backward kernel vs its plain version at the
           encoders' three shapes at the train batch (16), f32 and bf16, on
@@ -139,7 +144,9 @@ Phases (each prints one JSON line; any failed check raises):
           f32); K1's no-attribute form against
           its plain version bit for bit at batch 32 on the main path's
           crops (256²) and on 480×640 frames of YCB-V's camera, device and
-          call time beside the bound; ``Renderer(render_image=False,
+          call time beside the bound, and the parts of its time on the
+          ``k1_parts`` line (binning alone: the same faces, none usable;
+          an empty frame: 8 unusable faces off the frame); ``Renderer(render_image=False,
           render_mask=True, soft_blending=True)`` at both sizes, 3 renders
           each (launches: that form once per render, nothing else), 2
           samples against the CPU; the tile kernel, binned and scan passes
@@ -732,7 +739,7 @@ def phase_profile(model, renderer, cfg, step, batch) -> None:
     the share of the wall time in which some kernel ran)."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     from scflow_torch.training import device_normalize_images, render_at_pose
 
@@ -767,23 +774,40 @@ def phase_profile(model, renderer, cfg, step, batch) -> None:
             "Buffer Flush", "Activity Buffer Request")
 
     # the render's own device work: it synchronises with the host, so it
-    # cannot be queued ahead for device_ms; sum its kernels instead
-    with torch.inference_mode(), profile(
-            activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            render()
-        torch.cuda.synchronize()
-    render_kernels = [e for e in prof.key_averages() if is_kernel(e, e.key)]
-    stages["render_kernel_ms"] = sum(
-        e.self_device_time_total for e in render_kernels) / 1e3 / 5
-    stages["render_launches"] = sum(e.count for e in render_kernels) / 5
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # cannot be queued ahead for device_ms; sum its kernels instead, from a
+    # trace that holds every K1 kernel launched (``checked_trace``)
+    def renders():
+        with torch.inference_mode():
+            for _ in range(5):
+                render()
+
+    prof, lost = checked_trace(renders)
+    if prof is None:
+        stages.update(render_kernel_ms=None, render_launches=None,
+                      render_trace_lost=lost)
+    else:
+        render_kernels = [e for e in prof.key_averages()
+                          if is_kernel(e, e.key)]
+        stages["render_kernel_ms"] = sum(
+            e.self_device_time_total for e in render_kernels) / 1e3 / 5
+        stages["render_launches"] = sum(e.count for e in render_kernels) / 5
+    timed = {}
+
+    def steps():
         t0 = time.perf_counter()
         for _ in range(2):
             step(batch)
         torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0) / 2
+        timed["wall_ms"] = 1e3 * (time.perf_counter() - t0) / 2
 
+    prof, lost = checked_trace(steps, [ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA])
+    wall_ms = timed["wall_ms"]
+    if prof is None:
+        emit(phase="profile", **stages, step_wall_ms=wall_ms,
+             device_busy_ms=None, device_busy_share=None, top_kernels=[],
+             step_trace_lost=lost)
+        return
     busy_us, end = 0.0, -math.inf
     for s0, s1 in sorted((e.time_range.start, e.time_range.end)
                          for e in prof.events() if is_kernel(e, e.name)):
@@ -934,16 +958,93 @@ def phase_k2_bwd() -> list:
                         totals)
 
 
-def profile_kernels(fn, top: int = 12) -> dict:
-    """One call of ``fn`` under torch.profiler (outside any counted run):
-    the sum of its kernels' self device time, their launches, and the
-    ``top`` kernels by device time."""
+# the kernels a K1 call launches: the binning, then the raster pass
+K1_KERNELS = ("bin_chunks_kernel", "rasterize_tiles_kernel")
+PROFILE_TRIES = 3
+
+
+def launch_snapshot() -> tuple:
+    """The wrappers' launch counts now: K1's calls, and K2's forward and
+    backward launches by (form, dtype)."""
+    import collections
+
+    from scflow_torch.ops import rasterize_fast as rf
+    from scflow_torch.ops.fused_norm import instance_norm_bwd, instance_norm_fwd
+
+    return (rf.rasterize_tiles.launches,
+            {d: collections.Counter(w.form_launches) for d, w in
+             (("fwd", instance_norm_fwd), ("bwd", instance_norm_bwd))})
+
+
+def launched_kernels(before: tuple) -> "collections.Counter":
+    """The K1 and K2 kernels by name that the wrappers launched since the
+    ``launch_snapshot`` ``before``: 2 a K1 call, K2's by its forms'
+    launches (``K2_KERNELS``; every backward launch adds one reduce)."""
+    import collections
+
+    k1, k2 = launch_snapshot()
+    forms = collections.Counter()
+    for d, counter in k2.items():
+        for (form, _), n in (counter - before[1][d]).items():
+            forms[d, form] += n
+            if d == "bwd":
+                forms[d, None] += n
+    want = collections.Counter({k: forms[v] for k, v in K2_KERNELS.items()})
+    for name in K1_KERNELS:
+        want[name] = k1 - before[0]
+    return +want
+
+
+def traced_kernels(prof) -> "collections.Counter":
+    """The K1 and K2 kernels in a torch.profiler trace by name (template
+    arguments and namespaces dropped) and their count."""
+    import collections
+    import re
+
+    import torch
+
+    pattern = re.compile("|".join((*K1_KERNELS, r"instance_norm_\w+")))
+    seen = collections.Counter()
+    for e in prof.key_averages():
+        name = pattern.search(e.key)
+        if e.device_type == torch.autograd.DeviceType.CUDA and name:
+            seen[name.group()] += e.count
+    return seen
+
+
+def checked_trace(fn, activities=None):
+    """``fn`` under torch.profiler, taken again (up to ``PROFILE_TRIES``
+    times) until the trace holds every K1 and K2 kernel the wrappers
+    launched in it, as often as they launched it: late in this long
+    process traces lose kernels. Returns (the profile, None), or
+    (None, what the last trace kept against what was launched)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(PROFILE_TRIES):
         torch.cuda.synchronize()
+        before = launch_snapshot()
+        with profile(activities=activities or [ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        seen, want = traced_kernels(prof), launched_kernels(before)
+        if seen == want:
+            return prof, None
+    return None, dict(kept=sum(seen.values()), launched=sum(want.values()))
+
+
+def profile_kernels(fn, top: int = 12) -> dict:
+    """One call of ``fn`` under torch.profiler (outside any counted run):
+    the sum of its kernels' self device time, their launches, and the
+    ``top`` kernels by device time, from a trace that holds every K1 and
+    K2 kernel launched (``checked_trace``); where none did, the figures
+    are None and ``trace_lost`` says what the last trace kept."""
+    import torch
+
+    prof, lost = checked_trace(fn)
+    if prof is None:
+        return dict(profiled_kernel_ms=None, profiled_kernel_launches=None,
+                    top_kernels=[], trace_lost=lost)
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     ranked = sorted(kernels, key=lambda e: e.self_device_time_total,
@@ -1707,6 +1808,8 @@ def k1_bare(bank, poses: tuple, size: tuple) -> dict:
           f"k1_bare {size}: not bit-equal to the plain version {bits}")
     err = (got[1] - want[1]).abs().max().item()
     ms = device_ms(lambda: rf.rasterize_tiles(*args), KERNEL_REPS)
+    parts = {name: device_ms(lambda: rf.rasterize_tiles(*a), KERNEL_REPS)
+             for name, a in k1_part_args(args).items()}
     one = call_ms(lambda: rf.rasterize_tiles(*args), KERNEL_REPS)
     plain = call_ms(lambda: rf.rasterize_tiles_reference(*args), 3, 1)
     sel = rf._select_tiles(bbox.unbind(-1), coeff[..., 14] > 0, h, w, k)
@@ -1718,7 +1821,30 @@ def k1_bare(bank, poses: tuple, size: tuple) -> dict:
                 k=k, covered_share=(want[0] >= 0).float().mean().item(),
                 pixel_face_pairs=pairs, bit_equal=bits, max_abs_err=err,
                 ms=ms, call_ms=one, plain_ms=plain, bound_ms=b_ms,
-                bound_by=b_by, bytes=moved)
+                bound_by=b_by, bytes=moved,
+                parts=dict(parts, full_ms=ms))
+
+
+def k1_part_args(args: tuple) -> dict:
+    """K1's arguments for the parts of its time (``k1_parts``): binning
+    alone (the same faces, boxes and all, none usable: every tile comes
+    out empty after the binning) and an empty frame (8 unusable faces off
+    the frame: the background stores alone); the full call is ``args``."""
+    from scflow_torch.ops import rasterize_fast as rf
+
+    coeff, bbox, attr, h, w, d, k = args
+    unusable = coeff.clone()
+    unusable[..., 14] = 0.0
+    off = bbox[:, :8].clone()
+    off[...] = -1e4
+    empty = (unusable[:, :8].contiguous(), off.contiguous(),
+             None if attr is None else attr[:, :8].contiguous())
+    for name, (c, b, a) in (("binning", (unusable, bbox, attr)),
+                            ("empty", empty)):
+        ids = rf.rasterize_tiles(c, b, a, h, w, d, min(k, c.shape[1]))[0]
+        check(bool((ids == -1).all()), f"k1_parts: {name} rendered a face")
+    return {"binning_ms": (unusable, bbox, attr, h, w, d, k),
+            "empty_ms": (*empty, h, w, d, 8)}
 
 
 def depth_rounding_scale(coeff, face_id):
@@ -2008,6 +2134,8 @@ def phase_options(bank, renderer, batch) -> tuple:
                                        run["batch"])
     train_launches = train.pop("launches")
     del run
+    emit(phase="k1_parts", **{key: {"frame": v["frame"], **v["parts"]}
+                              for key, v in bare.items()})
     emit(phase="options", k2_small_max_abs_err=small_k2,
          card_k1_no_attrs=bare, silhouette={
         k: {f: v for f, v in s.items() if f != "launches"}
@@ -3270,38 +3398,28 @@ def k2_trace(fn, calls: int, margin: float) -> tuple:
     seconds idle after the trace starts and before it stops: (the K2
     kernels in the trace by name, template arguments dropped: their count
     and device ms per call; the count the wrappers' launches in the same
-    calls give each of ``K2_KERNELS``)."""
+    calls give each, ``launched_kernels``)."""
     import collections
     import re
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from scflow_torch.ops.fused_norm import instance_norm_bwd, instance_norm_fwd
-
-    wrappers = {"fwd": instance_norm_fwd, "bwd": instance_norm_bwd}
-    before = {d: collections.Counter(w.form_launches)
-              for d, w in wrappers.items()}
     torch.cuda.synchronize()
+    before = launch_snapshot()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         time.sleep(margin)
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
         time.sleep(margin)
-    forms = collections.Counter()
-    for d, w in wrappers.items():
-        for (form, _), n in (w.form_launches - before[d]).items():
-            forms[d, form] += n
-            if d == "bwd":
-                forms[d, None] += n
     seen, ms = collections.Counter(), collections.Counter()
     for e in prof.key_averages():
         name = re.search(r"instance_norm_\w+", e.key)
         if e.device_type == torch.autograd.DeviceType.CUDA and name:
             seen[name.group()] += e.count
             ms[name.group()] += e.self_device_time_total / 1e3 / calls
-    return seen, ms, {k: forms[v] for k, v in K2_KERNELS.items()}
+    return seen, ms, launched_kernels(before)
 
 
 def k2_kernel_ms(fn, calls: int = 1, tries: int = 3) -> dict:

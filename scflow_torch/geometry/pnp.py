@@ -3,8 +3,11 @@
 
 Every function takes any leading batch axes where the JAX package takes
 one sample and ``vmap``s. Variable point counts are weight masks. All
-products are elementwise float32 sums (:func:`_mm`), so no TF32 setting
-reaches them, as the JAX package forces f32 matmuls here. RANSAC is split
+products are elementwise sums (:func:`_mm`), so no TF32 setting reaches
+them, as the JAX package forces f32 matmuls here. Two small solves run in
+float64 whatever the input type, where f32 rounding decides RANSAC's
+winner and the refined pose: EPnP's 12×12 eigenproblem and Gauss-Newton's
+6×6 normal equations (see ``ROADMAP.md``, Queue 3). RANSAC is split
 into its draws and a deterministic core: :func:`ransac_pnp` draws the
 Gumbel noise from a ``torch.Generator`` and :func:`ransac_pnp_core` takes
 it, so another source of draws (the JAX package's keys, in the tests) can
@@ -104,9 +107,15 @@ def epnp(points_3d: torch.Tensor, points_2d: torch.Tensor, k: torch.Tensor,
     m = torch.cat([mx.reshape(mx.shape[:-3] + (n, 12)),
                    my.reshape(my.shape[:-3] + (n, 12))], dim=-2)
     wm = torch.cat([w, w], dim=-2)
-    _, eigvec = torch.linalg.eigh(_mm(_t(m * wm), m))
+    # MᵀM's smallest eigenvector is formed and solved in float64: in f32
+    # its error (~eps·λmax / gap) moves a 6-point hypothesis by ~0.1° and
+    # flips inliers across RANSAC's threshold (a deviation from the JAX
+    # package, which solves in f32)
+    m64 = m.to(torch.float64)
+    _, eigvec = torch.linalg.eigh(_mm(_t(m64 * wm.to(torch.float64)), m64))
     # control points in the camera frame, up to scale and sign
-    vkernel = eigvec[..., :, 0].reshape(eigvec.shape[:-2] + (4, 3))
+    vkernel = eigvec[..., :, 0].reshape(eigvec.shape[:-2] + (4, 3)) \
+        .to(points_3d.dtype)
 
     def pdist(c):
         diff = c[..., :, None, :] - c[..., None, :, :]
@@ -136,8 +145,8 @@ def refine_pose_gn(r, t, points_3d, points_2d, k, weights=None,
     left-multiplied axis-angle update of R, additive update of t."""
     if weights is None:
         weights = torch.ones_like(points_3d[..., 0])
-    eye = torch.eye(6, dtype=points_3d.dtype, device=points_3d.device)
-    ww = torch.cat([weights, weights], dim=-1)[..., None]
+    eye = torch.eye(6, dtype=torch.float64, device=points_3d.device)
+    ww = torch.cat([weights, weights], dim=-1)[..., None].to(torch.float64)
     fu, fv = k[..., 0, 0, None], k[..., 1, 1, None]
     for _ in range(iters):
         p_cam = _mm(points_3d, _t(r)) + t[..., None, :]
@@ -155,9 +164,16 @@ def refine_pose_gn(r, t, points_3d, points_2d, k, weights=None,
                          torch.cat([j_rot_v, dv], dim=-1)], dim=-2)
         res = reprojection_residual(r, t, points_3d, points_2d, k)
         rvec = torch.cat([res[..., 0], res[..., 1]], dim=-1)[..., None]
+        # the normal equations are formed and solved in float64: rotation
+        # about the camera's origin and translation are nearly collinear
+        # for an object far from the camera, and in f32 the step's error
+        # along that direction moves the pose by up to a millimetre an
+        # iteration, where inputs 1e-5 px apart should move it by 1e-5 mm
+        # (a deviation from the JAX package, which solves in f32)
+        jac, rvec = jac.to(torch.float64), rvec.to(torch.float64)
         jtj = _mm(_t(jac * ww), jac) + damping * eye
         jtr = _mm(_t(jac * ww), rvec)
-        delta = -_solve(jtj, jtr)[..., 0]
+        delta = -_solve(jtj, jtr)[..., 0].to(r.dtype)
         r = _mm(axis_angle_to_matrix(delta[..., :3]), r)
         t = t + delta[..., 3:]
     return r, t
@@ -202,7 +218,8 @@ def ransac_pnp_core(noise: torch.Tensor, points_3d: torch.Tensor,
     3), weights (..., N) in [0, 1].
 
     Returns dict(rotation, translation, inliers (..., N), num_inliers,
-    hypothesis (the winning row))."""
+    hypothesis (the winning row), counts (..., H) each hypothesis's
+    inliers before refinement)."""
     if weights is None:
         weights = torch.ones_like(points_3d[..., 0])
     scores = weights.clamp_min(1e-12).log()[..., None, :] + noise
@@ -235,7 +252,8 @@ def ransac_pnp_core(noise: torch.Tensor, points_3d: torch.Tensor,
                                     k).norm(dim=-1)
     inl_fin = (res_fin < inlier_threshold) & valid
     return {"rotation": r_fin, "translation": t_fin, "inliers": inl_fin,
-            "num_inliers": inl_fin.sum(-1), "hypothesis": best}
+            "num_inliers": inl_fin.sum(-1), "hypothesis": best,
+            "counts": counts}
 
 
 def ransac_pnp(generator: torch.Generator, points_3d, points_2d, k,

@@ -51,10 +51,11 @@
 //     staging a slice of about 16K elements (64 KB, three CTAs an SM); the
 //     slices' partial sums meet through distributed shared memory (thread
 //     0 of each CTA reads every CTA's sum in rank order, so the result is
-//     deterministic), twice for the two-pass statistics (three times
-//     backward). The plane is read once and written once, in 16-byte
-//     vectors where a slice's pointers are 16-byte aligned (slices start
-//     at multiples of 8 elements), else in coalesced scalars.
+//     deterministic), twice for the two-pass statistics. The plane is read
+//     once and written once, in 16-byte vectors where a slice's pointers
+//     are 16-byte aligned (slices start at multiples of 8 elements), else
+//     in coalesced scalars. The backward (redesigned, see its note) stages
+//     x and g in their own type and sums pairs in two cluster reductions.
 //  3. split form: planes past a cluster (H*W > 458,752: a 700x700 plane,
 //     the stem of a crop past ~1356 pixels). Each plane is cut into slices
 //     of 16 KB (4096 f32 or 8192 bf16 elements; 4096 backward), one CTA of
@@ -1158,17 +1159,118 @@ instance_norm_fwd_cluster(const T* __restrict__ x,
   cluster.sync();  // no CTA leaves while another reads its slots
 }
 
+// ---- the cluster backward (redesigned for Hopper) ----
+// What held the first design at 47% of its bound in bf16 (62% f32): g was
+// read from device memory twice and x staged as f32 (8 bytes an element in
+// bf16 against a bound of 6), and four cluster reductions ran in series
+// (sum x, sum (x-m)^2, sum g, sum g*xhat), each a cluster barrier and a
+// serial walk by thread 0 over every rank's slot. This design:
+//  - stages x and g in shared memory in their own type with cp.async (every
+//    copy of a thread in flight at once), so each is read once: bf16 slices
+//    of ~16K elements take 2 x 32 KB, three CTAs of 512 threads an SM. In
+//    f32 both fit at slices of ~8K elements (64 KB); where a slice is too
+//    large for both (f32 planes past 229,376 elements, up to the top of
+//    the form), g stays in device memory and is read twice (`kStageG`
+//    false);
+//  - fuses the statistics into two cluster reductions of a float pair:
+//    (sum x, sum g), then (sum (x-m)^2, sum g*(x-m)), the second pass
+//    centred on the first's mean (the two-pass variance); then
+//    sgx = inv * sum g*(x-m), m1 = s * sum g / hw, m2 = s * sgx / hw;
+//  - reads the ranks' slots in parallel (lane q of warp 0 reads rank q's)
+//    and sums them in rank order with shuffles: the same order on every
+//    run, no atomics, so two launches give equal bits;
+//  - arrives at the exit barrier as soon as its last remote read is done
+//    and waits for it only before leaving, so dx's stores overlap it.
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
+// this CTA's slice [0, n) of T copied to shared memory `dst`: 16-byte
+// cp.async copies where `vec` (src 16-byte aligned), plain copies past
+// them; the caller waits (cp_async_wait_all) and synchronises
 template <typename T>
+__device__ __forceinline__ void stage_slice(const T* src, T* dst, int n,
+                                            bool vec) {
+  constexpr int V = Pack<T>::n;
+  const int nvec = vec ? n / V : 0;
+  for (int i = threadIdx.x; i < nvec; i += blockDim.x)
+    cp_async16(dst + (size_t)i * V, src + (size_t)i * V);
+  for (int e = nvec * V + threadIdx.x; e < n; e += blockDim.x) dst[e] = src[e];
+}
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// the sum over the cluster of every thread's pair `v`, returned to every
+// thread: warp shuffles, then the warps' sums in order by thread 0 into
+// this CTA's `slot`; a cluster barrier; then lane q of warp 0 reads rank
+// q's slot and lane 0 adds them in rank order. With `leave`, every thread
+// arrives at the exit barrier right after the remote reads (the caller
+// waits on it, `cluster_wait`, before it leaves).
+__device__ __forceinline__ float2 cluster_sum2(cg::cluster_group& cluster,
+                                               float2 v, float2* scratch,
+                                               float2* slot, float2* bcast,
+                                               bool leave) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    v.x += __shfl_xor_sync(0xffffffffu, v.x, o);
+    v.y += __shfl_xor_sync(0xffffffffu, v.y, o);
+  }
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (lane == 0) scratch[warp] = v;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float2 t = make_float2(0.f, 0.f);
+    for (int w = 0; w < (int)blockDim.x / 32; ++w) {
+      t.x += scratch[w].x;
+      t.y += scratch[w].y;
+    }
+    *slot = t;
+  }
+  cluster.sync();
+  if (warp == 0) {
+    const int parts = (int)cluster.num_blocks();
+    float2 r = make_float2(0.f, 0.f);
+    if (lane < parts) r = *cluster.map_shared_rank(slot, lane);
+    float2 t = make_float2(0.f, 0.f);
+    for (int q = 0; q < parts; ++q) {
+      t.x += __shfl_sync(0xffffffffu, r.x, q);
+      t.y += __shfl_sync(0xffffffffu, r.y, q);
+    }
+    if (lane == 0) *bcast = t;
+  }
+  if (leave) cluster_arrive();
+  __syncthreads();
+  return *bcast;
+}
+
+template <typename T, bool kStageG>
 __global__ void __launch_bounds__(kClusterThreads)
 instance_norm_bwd_cluster(const T* __restrict__ x, const T* __restrict__ g,
                           const float* __restrict__ scale,
                           T* __restrict__ dx, float* __restrict__ part_scale,
                           float* __restrict__ part_bias, int channels, int hw,
                           float eps) {
-  extern __shared__ float4 staged4[];
-  float* staged = reinterpret_cast<float*>(staged4);
-  __shared__ float scratch[32];
-  __shared__ float slots[4], bcast[1];
+  extern __shared__ float4 smem4[];
+  __shared__ float2 scratch[kClusterThreads / 32];
+  __shared__ float2 slots[2], bcast[1];
   constexpr int V = Pack<T>::n;
   cg::cluster_group cluster = cg::this_cluster();
   const int parts = (int)cluster.num_blocks();
@@ -1178,33 +1280,64 @@ instance_norm_bwd_cluster(const T* __restrict__ x, const T* __restrict__ g,
   int lo, hi;
   cluster_slice(hw, parts, (int)cluster.block_rank(), lo, hi);
   const int n = hi - lo;
+  const int chunk = ((hw + parts - 1) / parts + 7) / 8 * 8;
   const T* xs = x + base + lo;
   const T* gs = g + base + lo;
   T* dxs = dx + base + lo;
+  T* x_s = reinterpret_cast<T*>(smem4);        // this CTA's slice of x
+  T* g_s = x_s + chunk;                        // and of g, with kStageG
   const bool vec = on16(xs) && on16(gs) && on16(dxs);
   const int nvec = vec ? n / V : 0;
-  float mean, inv;
-  cluster_stats(cluster, xs, n, vec, hw, eps, staged, scratch, slots, bcast,
-                mean, inv);
-  float sg = 0.f, sgx = 0.f;
+  stage_slice(xs, x_s, n, vec);
+  if (kStageG) stage_slice(gs, g_s, n, vec);
+  cp_async_wait_all();
+  __syncthreads();
+
+  // V values of g at vector i, scalar e: staged or from device memory
+  auto g_vec = [&](int i, float* v) {
+    Pack<T>::load((kStageG ? g_s : gs) + (size_t)i * V, v);
+  };
+  auto g_at = [&](int e) { return kStageG ? to_f(g_s[e]) : load1(gs + e); };
+
+  float2 s1 = make_float2(0.f, 0.f);             // (sum x, sum g)
   for (int i = threadIdx.x; i < nvec; i += blockDim.x) {
-    float gv[V], xv[V];
-    Pack<T>::load(gs + (size_t)i * V, gv);
-    slice_vec<V>(staged4, i, xv);
+    float xv[V], gv[V];
+    Pack<T>::load(x_s + (size_t)i * V, xv);
+    g_vec(i, gv);
 #pragma unroll
     for (int q = 0; q < V; ++q) {
-      sg += gv[q];
-      sgx += gv[q] * ((xv[q] - mean) * inv);
+      s1.x += xv[q];
+      s1.y += gv[q];
     }
   }
 #pragma unroll 4
   for (int e = nvec * V + threadIdx.x; e < n; e += blockDim.x) {
-    const float gk = load1(gs + e);
-    sg += gk;
-    sgx += gk * ((staged[e] - mean) * inv);
+    s1.x += to_f(x_s[e]);
+    s1.y += g_at(e);
   }
-  sg = cluster_sum(cluster, block_sum_any(sg, scratch), slots + 2, bcast);
-  sgx = cluster_sum(cluster, block_sum_any(sgx, scratch), slots + 3, bcast);
+  s1 = cluster_sum2(cluster, s1, scratch, slots, bcast, false);
+  const float mean = s1.x / hw;
+  float2 s2 = make_float2(0.f, 0.f);             // (sum d^2, sum g*d)
+  for (int i = threadIdx.x; i < nvec; i += blockDim.x) {
+    float xv[V], gv[V];
+    Pack<T>::load(x_s + (size_t)i * V, xv);
+    g_vec(i, gv);
+#pragma unroll
+    for (int q = 0; q < V; ++q) {
+      const float d = xv[q] - mean;
+      s2.x += d * d;
+      s2.y += gv[q] * d;
+    }
+  }
+#pragma unroll 4
+  for (int e = nvec * V + threadIdx.x; e < n; e += blockDim.x) {
+    const float d = to_f(x_s[e]) - mean;
+    s2.x += d * d;
+    s2.y += g_at(e) * d;
+  }
+  s2 = cluster_sum2(cluster, s2, scratch, slots + 1, bcast, true);
+  const float inv = rsqrtf(s2.x / hw + eps);
+  const float sg = s1.y, sgx = inv * s2.y;
   if (threadIdx.x == 0 && cluster.block_rank() == 0) {
     part_scale[plane] = sgx;
     part_bias[plane] = sg;
@@ -1213,9 +1346,9 @@ instance_norm_bwd_cluster(const T* __restrict__ x, const T* __restrict__ g,
   const float m1 = s * sg / hw;
   const float m2 = s * sgx / hw;
   for (int i = threadIdx.x; i < nvec; i += blockDim.x) {
-    float gv[V], xv[V], out[V];
-    Pack<T>::load(gs + (size_t)i * V, gv);
-    slice_vec<V>(staged4, i, xv);
+    float xv[V], gv[V], out[V];
+    Pack<T>::load(x_s + (size_t)i * V, xv);
+    g_vec(i, gv);
 #pragma unroll
     for (int q = 0; q < V; ++q) {
       const float xh = (xv[q] - mean) * inv;
@@ -1225,10 +1358,10 @@ instance_norm_bwd_cluster(const T* __restrict__ x, const T* __restrict__ g,
   }
 #pragma unroll 4
   for (int e = nvec * V + threadIdx.x; e < n; e += blockDim.x) {
-    const float xh = (staged[e] - mean) * inv;
-    store1(dxs + e, inv * (__fmul_rn(load1(gs + e), s) - m1 - xh * m2));
+    const float xh = (to_f(x_s[e]) - mean) * inv;
+    store1(dxs + e, inv * (__fmul_rn(g_at(e), s) - m1 - xh * m2));
   }
-  cluster.sync();
+  cluster_wait();  // no CTA leaves while another may read its slots
 }
 
 // CTAs in a plane's cluster: slices of about kClusterSlice elements
@@ -1273,17 +1406,47 @@ cudaError_t launch_fwd_cluster(const void* x, const float* scale,
                         eps);
 }
 
+// the backward's slices: ~kClusterSlice elements in bf16, whose x and g
+// fit three CTAs an SM; ~kClusterSliceBwdF32 in f32, the same bytes (on
+// the card this beat 16K-element f32 slices with x alone or with both
+// staged; PERF.md)
+constexpr int kClusterSliceBwdF32 = 8 * 1024;
+
 template <typename T>
 cudaError_t launch_bwd_cluster(const void* x, const void* g,
                                const float* scale, void* dx, float* part,
                                float* dscale, float* dbias, int planes,
                                int channels, int hw, float eps,
                                cudaStream_t stream) {
-  static size_t smem_set = 48 * 1024;
-  cudaError_t err = launch_cluster(
-      instance_norm_bwd_cluster<T>, planes, hw, &smem_set, stream,
-      (const T*)x, (const T*)g, scale, (T*)dx, part, part + planes, channels,
-      hw, eps);
+  const int target = sizeof(T) == 2 ? kClusterSlice : kClusterSliceBwdF32;
+  int parts = (hw + target - 1) / target;
+  parts = parts < 2 ? 2 : (parts > kMaxCluster ? kMaxCluster : parts);
+  const size_t chunk = (size_t)(((hw + parts - 1) / parts + 7) / 8 * 8);
+  // x and g staged where both fit the 227 KB a block may use (less the
+  // static reduction scratch), else x alone
+  const bool both = 2 * chunk * sizeof(T) <= 224 * 1024;
+  const size_t smem = (both ? 2 : 1) * chunk * sizeof(T);
+  auto kernel = both ? instance_norm_bwd_cluster<T, true>
+                     : instance_norm_bwd_cluster<T, false>;
+  static size_t smem_set[2] = {48 * 1024, 48 * 1024};
+  cudaError_t err = stage_smem(kernel, smem, &smem_set[both]);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(planes * parts));
+  cfg.blockDim = dim3(kClusterThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)parts;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, (const T*)x, (const T*)g, scale,
+                           (T*)dx, part, part + planes, channels, hw, eps);
+  if (err != cudaSuccess) return err;
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   instance_norm_bwd_reduce<<<(channels + kThreads - 1) / kThreads, kThreads,
                              0, stream>>>(part, part + planes, dscale, dbias,

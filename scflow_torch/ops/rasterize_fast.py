@@ -11,9 +11,11 @@ and writes the winner's face id, z and attributes in image layout. Without
 attributes (``tri_attrs=None``: depth or mask renders) it writes face ids
 and z alone, as the TPU kernel's ``d_attr=0`` form does.
 
-On a CUDA tensor the tile pass is the hand-written kernel in
-``csrc/rasterize.cu``, selection and decode included; on a CPU tensor it
-is :func:`rasterize_tiles_reference`: :func:`_select_tiles`, a literal
+On a CUDA tensor the tile pass is the hand-written kernel pair in
+``csrc/rasterize.cu``, selection and decode included: a binning launch
+writes each tile's chunk masks, and the raster launch ranks them and
+rasterizes (one call, counted once); on a CPU tensor it is
+:func:`rasterize_tiles_reference`: :func:`_select_tiles`, a literal
 translation of the TPU kernel's dense (pixels × faces) formulation, and
 the decode.
 """
@@ -218,15 +220,23 @@ def _kernel_entry():
     if _ENTRY is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         _ENTRY = _build.entry("scflow_rasterize_tiles",
-                              [p, p, p, p, p, p, i, i, i, i, i, i, p])
+                              [p, p, p, p, p, p, p, i, i, i, i, i, i, p])
     return _ENTRY
+
+
+def mask_words(n: int, faces: int, height: int, width: int) -> int:
+    """u32 words of the binning launch's chunk masks: one bit per 8-face
+    chunk for each (sample, tile), ``csrc/rasterize.cu``'s layout."""
+    return (n * ((faces // CHUNK + 31) // 32) * (height // TILE)
+            * (width // TILE))
 
 
 def rasterize_tiles(coeff: torch.Tensor, bbox: torch.Tensor,
                     attr: torch.Tensor | None, height: int, width: int,
                     d_attr: int, k_faces: int = K_FACES):
-    """Tile pass: the CUDA kernel on CUDA tensors (its no-attribute
-    instantiation when ``attr`` is None), the plain version
+    """Tile pass: the CUDA kernels on CUDA tensors (the binning launch,
+    then the raster launch, its no-attribute instantiation when ``attr`` is
+    None; one call, one count), the plain version
     (:func:`rasterize_tiles_reference`) on CPU tensors. Same contract."""
     if coeff.device.type == "cpu":
         return rasterize_tiles_reference(coeff, bbox, attr, height, width,
@@ -240,11 +250,13 @@ def rasterize_tiles(coeff: torch.Tensor, bbox: torch.Tensor,
     zbuf = torch.empty(n, height, width, dtype=torch.float32, device=dev)
     attrs = torch.empty(n, height, width, d_attr, dtype=torch.float32,
                         device=dev)
+    masks = torch.empty(mask_words(n, f, height, width), dtype=torch.int32,
+                        device=dev)
     err = _kernel_entry()(
         coeff.data_ptr(), bbox.data_ptr(),
         None if attr is None else attr.data_ptr(),
         face_id.data_ptr(), zbuf.data_ptr(), attrs.data_ptr(),
-        n, f, k_faces, height, width, d_attr,
+        masks.data_ptr(), n, f, k_faces, height, width, d_attr,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "rasterize_tiles")
     rasterize_tiles.launches += 1

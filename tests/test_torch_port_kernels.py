@@ -299,6 +299,60 @@ def test_instance_norm_split_repeats_bit_for_bit(dev, dtype):
         assert torch.equal(a, b)
 
 
+# the cluster form's backward (redesigned: x and g staged in their own
+# type, two cluster reductions of a pair): the plane just past one CTA
+# (57,345 = 15 × 3823), the 240² and 256² stems, 240×320, the top of the
+# form (458,752 = 448 × 1024), and 256² of values 1e3 ± 1 (± 64 in bf16)
+CLUSTER_BWD_PLANES = [(1, 2, 15, 3823), (1, 3, 240, 240), (1, 2, 256, 256),
+                      (1, 2, 240, 320), (1, 1, 448, 1024),
+                      (1, 2, 256, 256, 1e3)]
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", CLUSTER_BWD_PLANES)
+def test_instance_norm_cluster_backward(dev, dtype, shape, offset):
+    """The cluster form's backward at every plane size it takes and at an
+    offset base: within the encoders' bounds of the plain version (values
+    1e3 ± 1 within ``near64``'s bound of float64, which stays a small
+    part of dx), counted as the cluster form, and two launches give equal
+    bits (rank-ordered sums, no atomics)."""
+    n, c, h, w, *loc = shape
+    assert ONE_CTA_PLANE < h * w <= CLUSTER_PLANE
+    gen = torch.Generator().manual_seed(h * w + offset)
+    spread = LOC_SPREAD_BF16 if dtype == torch.bfloat16 else 1.0
+    values = (torch.randn(n, c, h, w, generator=gen) * 2 + 0.5 if not loc
+              else loc[0] + (torch.rand(n, c, h, w, generator=gen) * 2 - 1)
+              * spread)
+    x = offset_view(values.to(dev, dtype), offset)
+    g = offset_view(torch.randn(n, c, h, w, generator=gen).to(dev, dtype),
+                    offset)
+    scale = (1 + 0.3 * torch.randn(c, generator=gen)).to(dev)
+    dt = "f32" if dtype == torch.float32 else "bf16"
+    before = instance_norm_bwd.form_launches["cluster", dt]
+    got = instance_norm_bwd(x, g, scale)
+    again = instance_norm_bwd(x, g, scale)
+    torch.cuda.synchronize()
+    assert instance_norm_bwd.form_launches["cluster", dt] == before + 2
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    if not loc:
+        assert_bwd_close(got, instance_norm_bwd_reference(x, g, scale), x, g)
+        return
+    zero = torch.zeros_like(scale)
+    (_, dx64, ds64, db64), (_, mdx, mds, _) = near64(x, g, scale, zero)
+    assert mdx.max() < 0.05 * dx64.abs().mean()
+    step = ((lambda v: 1e-5 * v.abs()) if dtype == torch.float32
+            else bf16_step)
+    dx, dscale, dbias = got
+    assert ((dx.double() - dx64).abs() <= 1e-5 + step(dx64) + mdx).all()
+    mag_s = (g.double() * norm64(x, g, torch.ones_like(scale), zero)[0]
+             ).abs().sum((0, 2, 3))
+    assert ((dscale.double() - ds64).abs() <= 1e-5 * mag_s + mds).all()
+    assert ((dbias.double() - db64).abs()
+            <= 1e-5 * g.double().abs().sum((0, 2, 3))).all()
+
+
 def scene_inputs(dev, n=8, classes=5, subdivisions=3, size=256, seed=0,
                  k_faces=rf.K_FACES, shift=0.0, big_face=False, d_attr=9):
     """The tile pass's arguments for a seeded scene of ``n`` objects;
@@ -446,6 +500,123 @@ def test_rasterize_fast_selects_in_kernel(dev, monkeypatch):
     torch.cuda.synchronize()
     assert rf.rasterize_tiles.launches == before + 1
     assert out["mask"].any() and torch.isfinite(out["images"]).all()
+
+
+def small_faces_inputs(dev, n=4, faces=1024, size=256, seed=0, d_attr=0,
+                       k_faces=rf.K_FACES, cluster=None, ties=False,
+                       unusable=0.0, margins=False):
+    """The tile pass's arguments for ``faces`` seeded triangles of 1-8
+    pixels anywhere in a ``size``² frame (``cluster``: (x, y, radius) to
+    heap them in one place, so that one tile overlaps more chunks than
+    its k/8 slots), with random depths. ``ties``: the second half repeats
+    the first's triangles and depths, so every covered pixel's z ties and
+    the lower face id must win. ``unusable``: that share of faces marked
+    invalid, inside boxes that stay. ``margins``: some boxes set to exactly
+    a tile's ±0.5 pixel margin, NaN or ±inf (the selection's comparisons
+    at their edges)."""
+    gen = torch.Generator().manual_seed(seed)
+    half = faces // 2 if ties else faces
+    if cluster is None:
+        centre = torch.rand(n, half, 1, 2, generator=gen) * size
+    else:
+        x, y, r = cluster
+        centre = (torch.tensor([x, y]) + (torch.rand(n, half, 1, 2,
+                                                     generator=gen) * 2 - 1)
+                  * r)
+    tri_xy = centre + (torch.rand(n, half, 3, 2, generator=gen) * 2 - 1) * 4
+    tri_z = 500 + torch.rand(n, half, 1, generator=gen) * 200 + torch.rand(
+        n, half, 3, generator=gen) * 5
+    if ties:
+        tri_xy, tri_z = torch.cat([tri_xy] * 2, 1), torch.cat([tri_z] * 2, 1)
+    valid = torch.rand(n, faces, generator=gen) >= unusable
+    attrs = (torch.rand(n, faces, 3, d_attr, generator=gen) if d_attr
+             else None)
+    coeff, bbox, attr, d, k = rf.tile_inputs(
+        tri_xy.to(dev), tri_z.to(dev), valid.to(dev), size, size,
+        None if attrs is None else attrs.to(dev), k_faces)
+    if margins:
+        bbox = bbox.clone()
+        tile = torch.randint(0, size // rf.TILE, (n, faces, 2), generator=gen)
+        edge = (tile * rf.TILE).float().to(dev)
+        bbox[:, ::7, 1] = edge[:, ::7, 0] - 0.5          # xmax at the margin
+        bbox[:, 1::7, 0] = edge[:, 1::7, 0] + rf.TILE - 0.5   # xmin
+        bbox[:, 2::7, 3] = edge[:, 2::7, 1] - 0.5        # ymax
+        bbox[:, 3::7, 2] = edge[:, 3::7, 1] + rf.TILE - 0.5   # ymin
+        bbox[:, 4::97] = float("nan")
+        bbox[:, 5::97, 0] = -float("inf")
+        bbox[:, 5::97, 1] = float("inf")
+    return coeff, bbox, attr, size, size, d, k
+
+
+K1_SCENES = {
+    # small faces across the 4-row blocks each warp owns
+    "straddling": dict(),
+    # one tile overlapping 128 chunks against 8 slots (k = 64): the first
+    # 8 in face order must fill them
+    "over_budget": dict(cluster=(100.0, 100.0, 12.0), k_faces=64),
+    "z_ties": dict(ties=True, cluster=(128.0, 128.0, 40.0)),
+    "unusable": dict(unusable=0.4, cluster=(64.0, 64.0, 50.0)),
+    "margins": dict(margins=True),
+}
+
+
+@pytest.mark.parametrize("d_attr", [0, 9])
+@pytest.mark.parametrize("scene", list(K1_SCENES))
+def test_rasterize_kernel_small_faces(dev, scene, d_attr):
+    """Seeded triangles a few pixels across, where the kernel's per-warp
+    block culling and its binning launch decide the most: bit-equal to
+    the plain version, without attributes and with Phong's 9."""
+    args = small_faces_inputs(dev, d_attr=d_attr, **K1_SCENES[scene])
+    got, want = rasterize_both(args)
+    assert (want[0] >= 0).any()
+    assert_bit_equal(got, want)
+    if scene == "z_ties":    # the repeated half never wins a pixel
+        assert (want[0] < args[0].shape[1] // 2).all()
+
+
+@pytest.mark.parametrize("d_attr", [0, 9])
+def test_rasterize_kernel_empty_frames(dev, d_attr):
+    """Faces off the frame, or none usable: every tile empty, with and
+    without attributes."""
+    for shift, usable in ((2000.0, True), (0.0, False)):
+        args = scene_inputs(dev, shift=shift, d_attr=d_attr)
+        if not usable:
+            coeff = args[0].clone()
+            coeff[..., 14] = 0.0
+            args = (coeff, *args[1:])
+        got, want = rasterize_both(args)
+        assert (want[0] == -1).all()
+        assert_bit_equal(got, want)
+
+
+@pytest.mark.parametrize("d_attr", [0, 9])
+def test_rasterize_kernel_full_frames(dev, d_attr):
+    """32 objects of the 21-class bank anywhere in 480×640 frames of
+    YCB-V's camera, 700-1200 mm away (chip_smoke's frame renders): bit-
+    equal, with and without attributes."""
+    g = torch.Generator().manual_seed(5)
+    from scflow_torch.geometry import quaternion_to_matrix
+
+    n, (h, w) = 32, (480, 640)
+    rot = quaternion_to_matrix(torch.randn(n, 4, generator=g))
+    k = torch.tensor([[1066.778, 0.0, 312.9869], [0.0, 1067.487, 241.3109],
+                      [0.0, 0.0, 1.0]]).expand(n, 3, 3)
+    z = torch.rand(n, generator=g) * 500 + 700
+    u = torch.rand(n, generator=g) * (w - 160) + 80
+    v = torch.rand(n, generator=g) * (h - 160) + 80
+    t = torch.stack([(u - k[:, 0, 2]) * z / k[:, 0, 0],
+                     (v - k[:, 1, 2]) * z / k[:, 1, 1], z], dim=-1)
+    labels = torch.randint(0, 21, (n,), generator=g)
+    renderer = Renderer(make_test_meshes(21, subdivisions=3, radius=60.0,
+                                         device=dev), image_size=(h, w))
+    inp = renderer.rasterizer_inputs(rot.to(dev), t.to(dev),
+                                     k.contiguous().to(dev), labels.to(dev))
+    coeff, bbox, attr, d, kf = rf.tile_inputs(
+        inp["tri_xy"], inp["tri_z"], inp["face_valid"], h, w,
+        inp["tri_attrs"] if d_attr else None)
+    got, want = rasterize_both((coeff, bbox, attr, h, w, d, kf))
+    assert (want[0] >= 0).any() and (want[0] == -1).any()
+    assert_bit_equal(got, want)
 
 
 def test_rasterize_kernel_refuses(dev):

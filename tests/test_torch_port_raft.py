@@ -27,7 +27,7 @@ from flax.traverse_util import flatten_dict
 from port_common import (IMAGE, NUM_CLASS, jax_raft_variables, nchw, nhwc,
                          port_refiner)
 from port_common import one_torch_thread  # noqa: F401 (autouse)
-from test_torch_port_pnp import angle_deg
+from test_torch_port_pnp import angle_deg, assert_ransac_like_witness
 from scflow_torch.models import decoder as tdecoder
 from scflow_torch.models import flow_pose as tflow
 from scflow_tpu.models import decoder as jdecoder
@@ -298,6 +298,45 @@ def test_eval_step_two_legs(family, scene, monkeypatch):
         assert not valid.any() and fell_back.all()
     else:
         assert valid.all()
+
+
+def test_pnp_leg_ransac_against_witness(scene, monkeypatch):
+    """RANSAC-EPnP on the PnP leg's inputs of ``raft_flow_mask`` (JAX's
+    eval-step flow, occlusion and depth under :func:`pnp_ready` weights;
+    183 and 426 valid points), each sample with its JAX key, through
+    :func:`assert_ransac_like_witness`. Sample 0 is where the port's f32
+    EPnP once scored hypothesis 7 at 44 inliers (183 in float64 and in
+    JAX), chose hypothesis 15 (147), and Gauss-Newton then lost every
+    inlier, so ``pnp_valid`` came out False where JAX's is True."""
+    from scflow_tpu.training import make_eval_step
+
+    fam = "raft_flow_mask"
+    jmodel, jcfg, variables = jax_raft_variables(fam, iters=ITERS)
+    variables = pnp_ready(variables)
+    renderer, batch = scene
+    want = jax.tree.map(np.asarray, make_eval_step(jmodel, renderer, jcfg)(
+        variables["params"], variables["batch_stats"], batch))
+    n, h, w = want["depth"].shape
+    seen = {}
+    core = tflow.ransac_pnp_core
+
+    def spy(noise, p3, p2, k, weights, **kw):
+        seen.update(p3=p3, p2=p2, k=k, w=weights)
+        return core(noise, p3, p2, k, weights, **kw)
+
+    monkeypatch.setattr(tflow, "ransac_pnp_core", spy)
+    t = torch.from_numpy
+    tflow.solve_pose_from_flow_core(
+        *jax_eval_draws(n, h * w), t(want["flow"]), t(want["masks"][..., 0]),
+        t(want["depth"]), t(batch["ref_rotations"]),
+        t(batch["ref_translations"]), t(batch["k"]))
+    key, _ = jax.random.split(jax.random.PRNGKey(0))
+    for i, kk in enumerate(jax.random.split(key, n)):
+        p3, p2, k, w_ = (seen[name][i].numpy()
+                         for name in ("p3", "p2", "k", "w"))
+        got = assert_ransac_like_witness(kk, p3, p2, k, w_)
+        assert int(got["num_inliers"]) == int((w_ > 0).sum()), i
+        assert want["pnp_valid"][i]
 
 
 def test_multi_cycle_train_step_refuses_raft(family):
