@@ -204,6 +204,22 @@ Phases (each prints one JSON line; any failed check raises):
           read back), and the library functions at full size against the
           CPU: local_correlation on 256@32² at batch 32, both warps and
           both flow filters at 32 × 256², InstanceMasks at 480×640.
+  profile_tools  the profiling tools, each in a process of its own
+          (``python3 chip_smoke.py --tool-main <module> <args> [--then
+          <args> ...]``, which runs the tool's main once per argument list
+          and prints the wrappers' launches after each), all started at
+          once and run on the card one after another: comm_bench at world
+          1 on NCCL (1, 8, 64 MB; the rank checks the all-reduce exactly);
+          profile_trace of one bf16 eval and one bf16 train step at batch
+          32 (a checked trace; each attribution within 0.5% of the traced
+          kernel time; at most 1% of it under ``?``); profile_roofline in
+          f32 and bf16 at batch 32 and 5 steps (TF32 off; every share of
+          peak at most 100%; its eval step beside the main and bf16
+          medians), then counted at batch 2 on the card, which must agree
+          phase by phase with the CPU's count (two CPU processes beside
+          comm_bench and the trace); the pose graph bit-equal with TF32 on
+          and off (a seeded problem and the pose_graph phase's first
+          batch).
 Each phase's seconds print on a ``{"phase": "seconds"}`` line. Then the
 ``kernels`` line (K1 and its no-attribute form, the K2 forward and
 backward in f32 and in bf16, and K2's warp, general, cluster and split
@@ -214,6 +230,7 @@ GPU.
 """
 from __future__ import annotations
 
+import collections
 import itertools
 import json
 import math
@@ -221,6 +238,13 @@ import statistics
 import subprocess
 import sys
 import time
+
+from scflow_torch.ops.fused_norm import bwd_work, fwd_work
+from scflow_torch.ops.rasterize_fast import OPS_PER_PAIR as K1_OPS_PER_PAIR
+from scflow_torch.utils.profiling import (K2_KERNELS, NOT_KERNELS,
+                                          PEAK_BYTES, PEAK_FP32,
+                                          checked_trace, launch_snapshot,
+                                          launched_kernels)
 
 BATCH = 32
 TRAIN_BATCH = 16          # the JAX DataConfig.batch_size default
@@ -230,14 +254,7 @@ ITERS = 8
 WARMUP, STEPS = 2, 10
 TRAIN_WARMUP, TRAIN_STEPS = 2, 8
 KERNEL_REPS = 20
-# H100 SXM peaks (NVIDIA data sheet, dense): FP32 CUDA cores, HBM3
-PEAK_FP32 = 67e12
-PEAK_BYTES = 3.35e12
 L2_BYTES = 50 * 2 ** 20   # H100 L2 cache
-K1_OPS_PER_PAIR = 22      # counted in csrc/rasterize.cu
-K1_COEFF_USED = 14        # coefficients a face's pass reads: edges, z, id, ok
-K2_OPS_PER_ELEM = 8       # sum, centred square, normalise, affine
-K2_BWD_OPS_PER_ELEM = 16  # statistics 4, the two sums 5, dx 7
 # the three IN shapes of a feature-encoder pass (channels, side), 5 each;
 # a step runs two passes, so 10 launches of each shape
 IN_SHAPES = ((64, 128), (96, 64), (128, 32))
@@ -343,6 +360,20 @@ IMAGE_EVAL_IMAGES, IMAGE_EVAL_OBJECTS = 8, (1, 3)
 # the library functions at full size (local correlation on the encoders'
 # 1/8 features, warps and flow filters on the crops)
 TOOLS_OBJECTS, CORR_SHAPE, CORR_RADIUS = 6, (BATCH, 256, 32, 32), 4
+# profile_tools: each tool in a process of its own, through this script's
+# ``TOOL_ARG`` mode (it runs the tool's main once for each argument list,
+# split at ``THEN``, and prints the wrappers' launches after each):
+# comm_bench at world 1 (NCCL), the roofline timed at the eval batch with
+# fewer steps and counted at a small batch on the card and the CPU, the
+# trace of one eval and one train step (bf16, the tool's default); the
+# attributions of a trace must sum to its kernel time within this share,
+# and at most this share of it may lack a source line
+TOOL_ARG, THEN = "--tool-main", "--then"
+COMM_SIZES_MB = (1.0, 8.0, 64.0)
+ROOFLINE_STEPS, ROOFLINE_COUNT_BATCH, TRACE_STEPS = 5, 2, 1
+ATTRIBUTION_RTOL, UNATTRIBUTED_MAX = 5e-3, 0.01
+# the TF32 check's seeded pose-graph problem: objects, points each
+PG_OBJECTS, PG_POINTS = 6, 512
 
 
 def emit(**fields) -> None:
@@ -511,21 +542,19 @@ def phase_k1(renderer, batch) -> dict:
     one = call_ms(lambda: rf.rasterize_tiles(*args), KERNEL_REPS)
     # ~1600 small launches a call: more than the launch queue holds
     plain_ms = call_ms(lambda: rf.rasterize_tiles_reference(*args), 3, 1)
-    # the same work whatever implements it: of each face, the coefficients
-    # the pass uses and its 3·d_attr attribute floats read once, each output
-    # written once; 22 operations per filled (pixel, slot) pair
-    sel = rf._select_tiles(bbox.unbind(-1), coeff[..., 14] > 0, h, w, k)
-    pairs = (sel >= 0).sum().item() * rf.TILE * rf.TILE
-    faces = coeff.shape[0] * coeff.shape[1]
-    moved = (faces * (K1_COEFF_USED + 3 * d) * 4
-             + sum(x.numel() * 4 for x in got))
-    b_ms, b_by = bound_ms(moved, pairs * K1_OPS_PER_PAIR)
+    # the same work whatever implements it (``tile_pass_work``): of each
+    # face, the coefficients the pass uses and its 3·d_attr attribute floats
+    # read once, each output written once; 22 operations per filled (pixel,
+    # slot) pair
+    ops, moved = rf.tile_pass_work(coeff, bbox, h, w, d, k)
+    pairs = ops // K1_OPS_PER_PAIR
+    b_ms, b_by = bound_ms(moved, ops)
     row = dict(name="rasterize_tiles", route="cuda",
                source="scflow_torch/ops/csrc/rasterize.cu",
                replaces="scflow_tpu/ops/rasterize_fast.py:122",
                max_abs_err=err, ms=ms, call_ms=one, plain_ms=plain_ms,
                bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    emit(phase="k1", batch=coeff.shape[0], tiles=sel.shape[1], k=k,
+    emit(phase="k1", batch=coeff.shape[0], tiles=h * w // rf.TILE ** 2, k=k,
          faces=coeff.shape[1], d_attr=d, pixel_face_pairs=pairs,
          bit_equal=bits, max_abs_err=err, ms=ms, call_ms=one,
          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, bytes=moved)
@@ -647,8 +676,8 @@ def phase_k2() -> list:
             lib = device_ms(lambda: F.instance_norm(
                 next(xs), weight=scale, bias=bias, eps=1e-5), KERNEL_REPS)
             del xs
-            moved = 2 * x.numel() * x.element_size()
-            b_ms, b_by = bound_ms(moved, x.numel() * K2_OPS_PER_ELEM)
+            ops, moved = fwd_work(x)
+            b_ms, b_by = bound_ms(moved, ops)
             emit(phase="k2", shape=list(x.shape), dtype=str(dtype),
                  max_abs_err=err, ms=ms, call_ms=one, plain_ms=plain,
                  library_ms=lib, bound_ms=b_ms, bound_by=b_by)
@@ -657,7 +686,7 @@ def phase_k2() -> list:
             # 10 launches of this shape per eval step (5 per encoder pass)
             for key, v in (("ms", ms), ("call_ms", one), ("plain_ms", plain),
                            ("library_ms", lib), ("bytes", moved),
-                           ("ops", x.numel() * K2_OPS_PER_ELEM)):
+                           ("ops", ops)):
                 tot[key] += 10 * v
     return _kernel_rows("instance_norm_fwd", "scflow_tpu/ops/fused_norm.py:39",
                         totals)
@@ -770,8 +799,7 @@ def phase_profile(model, renderer, cfg, step, batch) -> None:
     # kernels only (aten ops also report their kernels' device time); busy
     # time is the union of kernel intervals, as cuDNN overlaps some kernels
     def is_kernel(e, name):
-        return e.device_type == DeviceType.CUDA and name not in (
-            "Buffer Flush", "Activity Buffer Request")
+        return e.device_type == DeviceType.CUDA and name not in NOT_KERNELS
 
     # the render's own device work: it synchronises with the host, so it
     # cannot be queued ahead for device_ms; sum its kernels instead, from a
@@ -939,8 +967,7 @@ def phase_k2_bwd() -> list:
             x, gy = x32.to(dtype), gy32.to(dtype)
             err, sum_err = k2_bwd_check(x, gy, scale, "k2_bwd")
             ms, one, plain_ms, lib = k2_bwd_times(x, gy, scale, bias)
-            moved = 3 * x.numel() * x.element_size() + 3 * c * 4
-            ops = x.numel() * K2_BWD_OPS_PER_ELEM
+            ops, moved = bwd_work(x)
             b_ms, b_by = bound_ms(moved, ops)
             emit(phase="k2_bwd", shape=list(x.shape), dtype=str(dtype),
                  max_abs_err=err, sums_max_rel_err=sum_err, ms=ms,
@@ -956,81 +983,6 @@ def phase_k2_bwd() -> list:
     return _kernel_rows("instance_norm_bwd",
                         "scflow_tpu/ops/fused_norm.py:148 (_bwd, plain XLA)",
                         totals)
-
-
-# the kernels a K1 call launches: the binning, then the raster pass
-K1_KERNELS = ("bin_chunks_kernel", "rasterize_tiles_kernel")
-PROFILE_TRIES = 3
-
-
-def launch_snapshot() -> tuple:
-    """The wrappers' launch counts now: K1's calls, and K2's forward and
-    backward launches by (form, dtype)."""
-    import collections
-
-    from scflow_torch.ops import rasterize_fast as rf
-    from scflow_torch.ops.fused_norm import instance_norm_bwd, instance_norm_fwd
-
-    return (rf.rasterize_tiles.launches,
-            {d: collections.Counter(w.form_launches) for d, w in
-             (("fwd", instance_norm_fwd), ("bwd", instance_norm_bwd))})
-
-
-def launched_kernels(before: tuple) -> "collections.Counter":
-    """The K1 and K2 kernels by name that the wrappers launched since the
-    ``launch_snapshot`` ``before``: 2 a K1 call, K2's by its forms'
-    launches (``K2_KERNELS``; every backward launch adds one reduce)."""
-    import collections
-
-    k1, k2 = launch_snapshot()
-    forms = collections.Counter()
-    for d, counter in k2.items():
-        for (form, _), n in (counter - before[1][d]).items():
-            forms[d, form] += n
-            if d == "bwd":
-                forms[d, None] += n
-    want = collections.Counter({k: forms[v] for k, v in K2_KERNELS.items()})
-    for name in K1_KERNELS:
-        want[name] = k1 - before[0]
-    return +want
-
-
-def traced_kernels(prof) -> "collections.Counter":
-    """The K1 and K2 kernels in a torch.profiler trace by name (template
-    arguments and namespaces dropped) and their count."""
-    import collections
-    import re
-
-    import torch
-
-    pattern = re.compile("|".join((*K1_KERNELS, r"instance_norm_\w+")))
-    seen = collections.Counter()
-    for e in prof.key_averages():
-        name = pattern.search(e.key)
-        if e.device_type == torch.autograd.DeviceType.CUDA and name:
-            seen[name.group()] += e.count
-    return seen
-
-
-def checked_trace(fn, activities=None):
-    """``fn`` under torch.profiler, taken again (up to ``PROFILE_TRIES``
-    times) until the trace holds every K1 and K2 kernel the wrappers
-    launched in it, as often as they launched it: late in this long
-    process traces lose kernels. Returns (the profile, None), or
-    (None, what the last trace kept against what was launched)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(PROFILE_TRIES):
-        torch.cuda.synchronize()
-        before = launch_snapshot()
-        with profile(activities=activities or [ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        seen, want = traced_kernels(prof), launched_kernels(before)
-        if seen == want:
-            return prof, None
-    return None, dict(kept=sum(seen.values()), launched=sum(want.values()))
 
 
 def profile_kernels(fn, top: int = 12) -> dict:
@@ -1507,7 +1459,7 @@ def phase_bf16(renderer, batch, cpu_f32, gpu_f32) -> tuple:
                      "card_bf16_vs_card_f32": pose_gap(gpu_bf16, gpu_f32),
                      "bound": f"{BF16_GAP_MULT} x cpu_bf16_vs_cpu_f32",
                      "cpu_seconds": cpu_s})
-    return run["k1"], run["k2"]
+    return run["k1"], run["k2"], step_ms
 
 
 def drive_train(name: str, cfg, bank, points, warmup: int, steps: int,
@@ -1812,11 +1764,9 @@ def k1_bare(bank, poses: tuple, size: tuple) -> dict:
              for name, a in k1_part_args(args).items()}
     one = call_ms(lambda: rf.rasterize_tiles(*args), KERNEL_REPS)
     plain = call_ms(lambda: rf.rasterize_tiles_reference(*args), 3, 1)
-    sel = rf._select_tiles(bbox.unbind(-1), coeff[..., 14] > 0, h, w, k)
-    pairs = (sel >= 0).sum().item() * rf.TILE * rf.TILE
-    faces = coeff.shape[0] * coeff.shape[1]
-    moved = faces * K1_COEFF_USED * 4 + sum(x.numel() * 4 for x in got[:2])
-    b_ms, b_by = bound_ms(moved, pairs * K1_OPS_PER_PAIR)
+    ops, moved = rf.tile_pass_work(coeff, bbox, h, w, 0, k)
+    pairs = ops // K1_OPS_PER_PAIR
+    b_ms, b_by = bound_ms(moved, ops)
     return dict(batch=coeff.shape[0], frame=list(size), faces=coeff.shape[1],
                 k=k, covered_share=(want[0] >= 0).float().mean().item(),
                 pixel_face_pairs=pairs, bit_equal=bits, max_abs_err=err,
@@ -2444,7 +2394,9 @@ def phase_eval_bop() -> tuple:
 def phase_pose_graph(eval_results: list) -> tuple:
     """``test.py --pose-graph`` on the card: the eval_bop tree written
     again from its seed, evaluated at the CLI's width with the scene pose
-    graph; returns the loop's launches of K1 and the K2 forward."""
+    graph; returns the loop's launches of K1 and the K2 forward, and the
+    first batch's pass (``out``, ``batch``, ``metas``: ``profile_tools``'
+    TF32 check)."""
     import tempfile
     from unittest import mock
 
@@ -2581,7 +2533,7 @@ def phase_pose_graph(eval_results: list) -> tuple:
                      "max_pose_move_mm": moved, "cpu_pass_seconds": cpu_s,
                      **POSE_TOL},
          phase_seconds=time.perf_counter() - t_phase)
-    return k1, k2
+    return k1, k2, {k: first[k] for k in ("out", "batch", "metas")}
 
 
 def phase_parallel(bank) -> tuple:
@@ -3310,8 +3262,7 @@ def phase_k2_planes(kernels: dict) -> tuple[list, dict]:
                 library_ms=device_ms(lambda: F.instance_norm(
                     next(xs), weight=scale, bias=bias, eps=1e-5),
                     KERNEL_REPS),
-                bytes=2 * x.numel() * x.element_size(),
-                ops=x.numel() * K2_OPS_PER_ELEM, worst=err,
+                bytes=fwd_work(x)[1], ops=fwd_work(x)[0], worst=err,
                 kernel_ms=kernels["planes"].get(f"{i}.{dt}.fwd"))
             del xs
             fwd["kernel_bytes"] = (1 + reads) * x.numel() * x.element_size()
@@ -3324,8 +3275,8 @@ def phase_k2_planes(kernels: dict) -> tuple[list, dict]:
             ms, one, plain_ms, lib = k2_bwd_times(xb, gb, scale, bias)
             bwd = dict(ms=ms, call_ms=one, plain_ms=plain_ms, library_ms=lib,
                        kernel_ms=kernels["planes"].get(f"{i}.{dt}.bwd"),
-                       bytes=3 * xb.numel() * xb.element_size() + 3 * c * 4,
-                       ops=xb.numel() * K2_BWD_OPS_PER_ELEM, worst=b_err)
+                       bytes=bwd_work(xb)[1], ops=bwd_work(xb)[0],
+                       worst=b_err)
             bwd["kernel_bytes"] = (bwd["bytes"] + 2 * (reads - 1) * xb.numel()
                                    * xb.element_size())
             for d, r in (("fwd", fwd), ("bwd", bwd)):
@@ -3369,22 +3320,6 @@ def phase_k2_planes(kernels: dict) -> tuple[list, dict]:
     return rows, checked
 
 
-# K2's kernels by name (template arguments dropped), with the direction
-# and form whose launch runs each once; every backward launch also runs
-# instance_norm_bwd_reduce once
-K2_KERNELS = {"instance_norm_fwd_kernel": ("fwd", "vector"),
-              "instance_norm_fwd_warp": ("fwd", "warp"),
-              "instance_norm_fwd_any": ("fwd", "general"),
-              "instance_norm_fwd_cluster": ("fwd", "cluster"),
-              "instance_norm_split_stats": ("fwd", "split"),
-              "instance_norm_split_fwd": ("fwd", "split"),
-              "instance_norm_bwd_kernel": ("bwd", "vector"),
-              "instance_norm_bwd_warp": ("bwd", "warp"),
-              "instance_norm_bwd_any": ("bwd", "general"),
-              "instance_norm_bwd_cluster": ("bwd", "cluster"),
-              "instance_norm_split_bwd_stats": ("bwd", "split"),
-              "instance_norm_split_bwd": ("bwd", "split"),
-              "instance_norm_bwd_reduce": ("bwd", None)}
 # host seconds each K2 trace stays idle after it starts and before it
 # stops, a margin for the drift between the host's and the trace's
 # clocks; the argument that makes this script the process that takes
@@ -3995,6 +3930,332 @@ def phase_tools(bank) -> dict:
     return launches
 
 
+def tool_child(module: str, argv: list) -> int:
+    """The work of a ``profile_tools`` process: ``module``'s ``main`` once
+    for each argument list of ``argv`` (split at ``THEN``), each run
+    followed by a line of the wrappers' launches in it (K1's calls and its
+    no-attribute ones; K2's by direction, form and dtype)."""
+    import importlib
+
+    from scflow_torch.ops import rasterize_fast as rf
+    from scflow_torch.ops.fused_norm import instance_norm_bwd, instance_norm_fwd
+
+    def launches() -> dict:
+        return {"k1": rf.rasterize_tiles.launches,
+                "bare": rf.rasterize_tiles.bare_launches,
+                **{d: collections.Counter({
+                    f"{form}.{dt}": n
+                    for (form, dt), n in w.form_launches.items()})
+                   for d, w in (("fwd", instance_norm_fwd),
+                                ("bwd", instance_norm_bwd))}}
+
+    main = importlib.import_module(module).main
+    sys.stdin.readline()         # the card's turn (``start_tool``'s ``wait``)
+    runs = [[]]
+    for arg in argv:
+        if arg == THEN:
+            runs.append([])
+        else:
+            runs[-1].append(arg)
+    for run_argv in runs:
+        before = launches()
+        main(run_argv)
+        after = launches()
+        print(json.dumps({"tool_launches": {
+            k: dict(v - before[k]) if isinstance(v, dict) else v - before[k]
+            for k, v in after.items()}}), flush=True)
+    return 0
+
+
+def start_tool(module: str, *argv: str, threads: int | None = None,
+               wait: bool = False):
+    """``python3 chip_smoke.py --tool-main scflow_torch.tools.<module>
+    argv...`` started (``threads``: its OMP_NUM_THREADS). With ``wait`` it
+    imports, then waits for ``finish_tool`` to close its input before it
+    runs, so that its start-up overlaps the work before its turn."""
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    if threads:
+        env["OMP_NUM_THREADS"] = str(threads)
+    return subprocess.Popen(
+        [sys.executable, os.path.join(here, "chip_smoke.py"), TOOL_ARG,
+         f"scflow_torch.tools.{module}", *argv],
+        stdin=subprocess.PIPE if wait else subprocess.DEVNULL,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=here,
+        env=env)
+
+
+def finish_tool(proc, what: str, timeout: float = 600) -> list:
+    """Each run's (the tool's output lines, the launches printed after
+    them) once the process has exited 0; killed if it outlives
+    ``timeout``."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    check(proc.returncode == 0, f"profile_tools: {what} exited "
+                                f"{proc.returncode}: {err[-3000:]}")
+    runs, lines = [], []
+    for line in out.strip().splitlines():
+        if line.startswith('{"tool_launches"'):
+            runs.append((lines, json.loads(line)["tool_launches"]))
+            lines = []
+        else:
+            lines.append(line)
+    return runs
+
+
+def tool_path(launches: dict, dt: str) -> tuple:
+    """A tool process's (K1, K2 forward, K2 backward) launches: K1's with
+    attributes and K2's of the vector form in ``dt`` only (checked)."""
+    for d in ("fwd", "bwd"):
+        other = {k: n for k, n in launches[d].items()
+                 if k != f"vector.{dt}" and n}
+        check(not other, f"profile_tools: K2 {d} launched {other}")
+    check(launches["bare"] == 0, f"profile_tools: K1 without attributes "
+                                 f"launched {launches['bare']} times")
+    return (launches["k1"],
+            launches["fwd"].get(f"vector.{dt}", 0),
+            launches["bwd"].get(f"vector.{dt}", 0))
+
+
+def pose_graph_problem(device: str, seed: int = 3) -> tuple:
+    """A seeded ``solve_pose_graph`` problem of ``PG_OBJECTS`` objects of
+    ``PG_POINTS`` points: targets projected at jittered poses with 0.5 px
+    of noise, weights in [0, 1)."""
+    import torch
+
+    from scflow_torch.geometry import quaternion_to_matrix
+    from scflow_torch.geometry.se3 import matmul3, matvec3, transform_points
+
+    g = torch.Generator().manual_seed(seed)
+    n, p = PG_OBJECTS, PG_POINTS
+    points = torch.randn(n, p, 3, generator=g) * 30
+    r = quaternion_to_matrix(torch.randn(n, 4, generator=g))
+    t = torch.cat([torch.rand(n, 2, generator=g) * 100 - 50,
+                   torch.rand(n, 1, generator=g) * 400 + 500], dim=-1)
+    k = torch.tensor([[500.0, 0, 128], [0, 500.0, 128], [0, 0, 1]])
+    true_r = matmul3(quaternion_to_matrix(torch.randn(n, 4, generator=g)
+                                          * 0.02 + torch.tensor([0.0, 0, 0,
+                                                                 1])), r)
+    uvw = matvec3(k, transform_points(true_r, t + 5 * torch.randn(
+        n, 3, generator=g), points))
+    target = uvw[..., :2] / uvw[..., 2:] + 0.5 * torch.randn(n, p, 2,
+                                                             generator=g)
+    weights = torch.rand(n, p, generator=g)
+    return tuple(v.to(device) for v in (points, target, r, t, k, weights))
+
+
+def pose_graph_tf32(first: dict | None) -> dict:
+    """The pose graph with TF32 on for matmuls and cuDNN against off (both
+    flags restored after), bit for bit: ``solve_pose_graph`` in both modes
+    on ``pose_graph_problem``, and ``pose_graph_from_flow`` in both modes
+    on each image of 2 or more objects of the pose_graph phase's first
+    batch (``first``: its ``out``, ``batch``, ``metas``); beside it, whether
+    ``torch.linalg.solve_ex`` alone moves on the problem's camera system."""
+    import numpy as np
+    import torch
+
+    from scflow_torch.parallel.pose_graph import (_gn_blocks,
+                                                  pose_graph_from_flow,
+                                                  solve_pose_graph)
+    from scflow_torch.utils.profiling import tf32
+
+    problem = pose_graph_problem("cuda")
+    images = []
+    if first is not None:
+        out = first["out"]
+        k = torch.as_tensor(np.asarray(first["batch"]["k"])).cuda()
+        for _, start, n in first["metas"]:
+            if n >= 2:
+                sl = slice(start, start + n)
+                images.append((out["flow"][sl], out["masks"][sl][..., 0],
+                               out["depth"][sl], out["ref_rotations"][sl],
+                               out["ref_translations"][sl],
+                               out["rotations"][sl].float(),
+                               out["translations"][sl].float(), k[sl],
+                               torch.ones(n, device="cuda")))
+    points, target, r, t, k, weights = problem
+    h, b = _gn_blocks(points, target, r, t, k.expand(len(r), 3, 3), weights,
+                      damping=1e-3)
+
+    def runs() -> dict:
+        got = {}
+        for mode in ("full", "camera_only"):
+            only = mode == "camera_only"
+            got[f"solve_{mode}"] = solve_pose_graph(*problem,
+                                                    camera_only=only)
+            for i, args in enumerate(images):
+                got[f"image{i}_{mode}"] = pose_graph_from_flow(
+                    *args, camera_only=only)
+        got["solve_ex"] = {"x": torch.linalg.solve_ex(
+            h.sum(0), b.sum(0)[:, None], check_errors=False).result}
+        torch.cuda.synchronize()
+        return got
+
+    with tf32(False):
+        off = runs()
+    with tf32(True):
+        on = runs()
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    check(flags == (False, False), f"pose_graph_tf32: flags {flags} after")
+    equal = {name: all(torch.equal(a.view(torch.int32), on[name][key].view(
+        torch.int32)) for key, a in res.items()) for name, res in off.items()}
+    solve_ex = equal.pop("solve_ex")
+    check(all(equal.values()), f"pose_graph_tf32: TF32 moved {equal}")
+    finite = all(bool(torch.isfinite(v).all()) for res in off.values()
+                 for v in res.values())
+    check(finite and (first is None or images),
+          f"pose_graph_tf32: finite {finite}, {len(images)} images")
+    return dict(bit_equal=equal, images=len(images),
+                solve_ex_alone_bit_equal=solve_ex)
+
+
+def phase_profile_tools(smi: str, main_ms: float, bf16_ms: float,
+                        pg_first: dict) -> dict:
+    """The profiling tools on the card, each tool in a process of its own
+    (``start_tool``), one after another on the card while the roofline's
+    CPU counts run beside them: comm_bench at world 1 on NCCL (every line,
+    the exact all-reduce in the rank); profile_trace of one eval and one
+    train step (a checked trace; each attribution sums to the trace's
+    kernel time within ``ATTRIBUTION_RTOL``; at most ``UNATTRIBUTED_MAX``
+    of it under ``?``); profile_roofline in f32 and bf16 at the eval batch
+    (every share of peak at most 100%; its eval step beside the main and
+    bf16 phases' medians), then counted at batch 2, where the card's
+    counts must equal the CPU's phase by phase; and the pose graph
+    bit-equal under TF32 (``pose_graph_tf32``). Returns each tool path's
+    launches (K1, K2 forward, K2 backward) and its dtype."""
+    t_phase = time.perf_counter()
+    seconds, paths = {}, {}
+    dtypes = (("float32", "f32"), ("bfloat16", "bf16"))
+
+    def run(what: str, proc) -> list:
+        t0 = time.perf_counter()
+        got = finish_tool(proc, what)
+        seconds[what] = time.perf_counter() - t0
+        return got
+
+    def count_argv(dtype: str, dev: str) -> tuple:
+        return ("--batch", str(ROOFLINE_COUNT_BATCH), "--dtype", dtype,
+                "--steps", "0", "--device", dev)
+
+    def then(*argvs: tuple) -> tuple:
+        return tuple(itertools.chain(*((THEN,) * bool(i) + a
+                                       for i, a in enumerate(argvs))))
+
+    # every process starts now; on the card they run one after another
+    # (the trace, then the roofline alone on the card and the host), the
+    # roofline's CPU counts (untimed) beside comm_bench and the trace
+    modes = ("eval", "train")
+    cpu_counts = {dtype: start_tool("profile_roofline",
+                                    *count_argv(dtype, "cpu"), threads=2)
+                  for dtype, _ in dtypes}
+    comm_proc = start_tool("comm_bench", "--world", "1", "--sizes-mb",
+                           *map(str, COMM_SIZES_MB))
+    trace_proc = start_tool("profile_trace", *then(*(
+        ("--mode", mode, "--batch", str(BATCH), "--steps", str(TRACE_STEPS),
+         "--top", "12") for mode in modes)), wait=True)
+    roofline_proc = start_tool("profile_roofline", *then(
+        *(("--batch", str(BATCH), "--dtype", dtype, "--steps",
+           str(ROOFLINE_STEPS)) for dtype, _ in dtypes),
+        *(count_argv(dtype, "cuda") for dtype, _ in dtypes)), wait=True)
+    procs = [*cpu_counts.values(), comm_proc, trace_proc, roofline_proc]
+    try:
+        [(lines, _)] = run("comm_bench", comm_proc)
+        comm = [json.loads(ln) for ln in lines if ln.startswith("{")]
+        mesh, *bw, dp = comm
+        check(mesh == {"metric": "mesh_devices", "value": 1,
+                       "unit": "devices", "platform": "gpu"},
+              f"comm_bench: {mesh}")
+        check([r["payload_mb"] for r in bw] == list(COMM_SIZES_MB)
+              and all(r["metric"] == "psum_allreduce_busbw"
+                      and r["value"] == 0 and r["unit"] == "GB/s"
+                      and r["latency_ms"] > 0 for r in bw),
+              f"comm_bench: {bw}")
+        check(dp["metric"] == "dp_weak_scaling_efficiency"
+              and dp["value"] == 1.0 and dp["unit"] == "ratio"
+              and dp["devices"] == 1
+              and dp["t_1dev_ms"] == dp["t_ndev_ms"] > 0,
+              f"comm_bench: {dp}")
+        dp_launches = dp["rank0_launches"]
+        paths["comm_bench"] = ((dp_launches["rasterize_tiles"],
+                                dp_launches["instance_norm_fwd"],
+                                dp_launches["instance_norm_bwd"]), "f32")
+
+        traces = {}
+        for mode, (lines, launches) in zip(modes, run("profile_trace",
+                                                      trace_proc)):
+            summary = json.loads(lines[-1])
+            traced = summary["traced_ms_per_step"]
+            sums = {"category": sum(summary["by_category"].values()),
+                    "source": summary["by_source_sum_ms"],
+                    "op": summary["by_op_sum_ms"]}
+            # the sums catch a kernel linked twice; the share under ``?``
+            # how much the source lines miss
+            check(traced > 0 and all(abs(v - traced) <= ATTRIBUTION_RTOL
+                                     * traced for v in sums.values()),
+                  f"profile_trace {mode}: attributions {sums} of {traced} ms")
+            check(summary["unattributed_share"] <= UNATTRIBUTED_MAX,
+                  f"profile_trace {mode}: "
+                  f"{summary['unattributed_share']:.2%} under ?")
+            traces[mode] = dict(summary, attribution_sums=sums)
+            paths[f"profile_trace_{mode}"] = (tool_path(launches, "bf16"),
+                                              "bf16")
+
+        t0 = time.perf_counter()
+        for dtype, proc in cpu_counts.items():
+            [(lines, _)] = finish_tool(proc, f"roofline count {dtype} cpu")
+            cpu_counts[dtype] = {r["phase"]: (r["flops"], r["bytes"])
+                                 for r in json.loads(lines[-1])}
+        seconds["roofline_cpu_counts_wait"] = time.perf_counter() - t0
+        # f32 and bf16 timed, then counted on the card
+        runs = run("profile_roofline", roofline_proc)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+
+    roofline = {}
+    for (dtype, dt), step_ms, (lines, launches) in zip(
+            dtypes, (main_ms, bf16_ms), runs[:2]):
+        rows = json.loads(lines[-1])
+        check(smi in lines[0] and [r["phase"] for r in rows] == [
+            "render", "enc_render", "enc_real", "enc_context",
+            "corr_build(+2enc)", "full_forward", "eval_step(e2e)"],
+            f"profile_roofline {dtype}: {lines[0]} {rows}")
+        for r in rows:
+            for key in ("pct_peak_flops", "pct_peak_bw"):
+                check(r[key] is not None and 0 <= r[key] <= 100,
+                      f"profile_roofline {dtype} {r['phase']}: {key} {r[key]}")
+        roofline[dt] = dict(header=lines[0], rows=rows, table=lines[1:-1],
+                            eval_step_ms=rows[-1]["ms"],
+                            same_step_median_ms=step_ms)
+        paths[f"profile_roofline_{dt}"] = (tool_path(launches, dt), dt)
+    counts = {}
+    for (dtype, _), (lines, _) in zip(dtypes, runs[2:]):
+        card = {r["phase"]: (r["flops"], r["bytes"])
+                for r in json.loads(lines[-1])}
+        check(card == cpu_counts[dtype],
+              f"roofline {dtype} at batch {ROOFLINE_COUNT_BATCH}: card "
+              f"{card}, CPU {cpu_counts[dtype]}")
+        counts[dtype] = card
+
+    tf32_check = pose_graph_tf32(pg_first)
+    emit(phase="profile_tools", comm_bench=comm, roofline=roofline,
+         roofline_counts_equal_at_batch=ROOFLINE_COUNT_BATCH,
+         roofline_counts=counts, traces=traces, pose_graph_tf32=tf32_check,
+         tool_seconds=seconds, paths={p: list(c) for p, (c, _) in
+                                      paths.items()},
+         phase_seconds=time.perf_counter() - t_phase)
+    return paths
+
+
 def run_phase(name: str, fn, *args):
     """Run one phase and print its seconds on a line of its own."""
     t0 = time.perf_counter()
@@ -4012,6 +4273,8 @@ def main() -> int:
     if sys.argv[1:] == [K2_KERNELS_ARG]:
         print(json.dumps(k2_kernels_child()))
         return 0
+    if sys.argv[1:2] == [TOOL_ARG]:
+        return tool_child(sys.argv[2], sys.argv[3:])
     from scflow_torch.ops import _build
     from scflow_torch.rendering import Renderer, make_test_meshes
     from scflow_torch.training import (Config, ModelConfig, build_model,
@@ -4099,12 +4362,14 @@ def main() -> int:
     bwd_rows = run_phase("k2_bwd", phase_k2_bwd)
     train, train_ms = run_phase("train", phase_train, bank)
     trainer = run_phase("trainer", phase_trainer, train_ms)
-    bf16 = run_phase("bf16", phase_bf16, renderer, batch, cpu_out, gpu_out)
+    *bf16, bf16_ms = run_phase("bf16", phase_bf16, renderer, batch, cpu_out,
+                               gpu_out)
     train_bf16 = run_phase("train_bf16", phase_train_bf16, bank)
     raft = run_phase("raft", phase_raft, renderer, batch)
     raft_train = run_phase("raft_train", phase_raft_train, bank)
     *eval_bop, eval_results = run_phase("eval_bop", phase_eval_bop)
-    pose_graph = run_phase("pose_graph", phase_pose_graph, eval_results)
+    *pose_graph, pg_first = run_phase("pose_graph", phase_pose_graph,
+                                      eval_results)
     train_bop = run_phase("train_bop", phase_train_bop, train_ms, smi)
     train_pbr = run_phase("train_pbr", phase_train_pbr, train_ms, smi)
     parallel = run_phase("parallel", phase_parallel, bank)
@@ -4117,6 +4382,8 @@ def main() -> int:
     backbone = run_phase("backbone", phase_backbone, kernels)
     image_size = run_phase("image_size", phase_image_size, bank)
     tools = run_phase("tools", phase_tools, bank)
+    profile_tools = run_phase("profile_tools", phase_profile_tools, smi,
+                              step_ms, bf16_ms, pg_first)
     emit(phase="done", seconds_total=time.perf_counter() - t_start)
 
     # ``launches``: the row's own path (f32 or bf16); beside it every
@@ -4147,20 +4414,26 @@ def main() -> int:
     paths.update({p: (k1 - bare, k2, k2b)
                   for p, (k1, k2, k2b, bare) in tools.items()})
     bare_row["launches_by_path"].update({p: v[3] for p, v in tools.items()})
+    # the profiling tools' processes (their K1 renders carry attributes)
+    paths.update({p: c for p, (c, _) in profile_tools.items()})
+    bare_row["launches_by_path"].update({p: 0 for p in profile_tools})
+    tool_paths = {dt: tuple(p for p, (_, d) in profile_tools.items()
+                            if d == dt) for dt in ("f32", "bf16")}
     k1_row.update(launches=main_run["k1"], launches_by_path=by_path(0, paths))
     fwd_rows[0].update(launches=main_run["k2"], launches_by_path=by_path(
         1, ("main", "raft", "train", "trainer", "raft_train", "eval_bop",
             "train_bop", "train_pbr", "pose_graph", "parallel", "options_a",
-            "small", "raft_small", "options_train", *new_paths)))
+            "small", "raft_small", "options_train", *new_paths,
+            *tool_paths["f32"])))
     fwd_rows[1].update(launches=bf16[1], launches_by_path=by_path(
-        1, ("bf16", "train_bf16")))
+        1, ("bf16", "train_bf16", *tool_paths["bf16"])))
     bwd_rows[0].update(launches=train[2], launches_by_path=by_path(
         2, ("train", "trainer", "raft_train", "train_bop", "train_pbr",
             "parallel", "options_train", "backbone_plain_train",
             "backbone_v1d_train", "backbone_large_train",
-            "image_size_train")))
-    bwd_rows[1].update(launches=train_bf16[2],
-                       launches_by_path=by_path(2, ("train_bf16",)))
+            "image_size_train", *tool_paths["f32"])))
+    bwd_rows[1].update(launches=train_bf16[2], launches_by_path=by_path(
+        2, ("train_bf16", *tool_paths["bf16"])))
     # K2's forms past the vector form per dtype: launches on the new paths
     # as the wrappers counted them (every old path launched the vector form
     # only: reset_counts checks it), and in k2_planes' checks; ``launches``

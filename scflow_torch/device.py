@@ -16,3 +16,10 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
             f"device {str(dev)!r} requested but no CUDA GPU is available; "
             "pass device='cpu' to run the plain PyTorch path")
     return dev
+
+
+def synchronize(device: str | torch.device) -> None:
+    """Wait for the work queued on a CUDA ``device``; nothing on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)

@@ -17,6 +17,7 @@ import ctypes
 
 import torch
 
+from ..utils.profiling import kernel_work
 from . import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -28,6 +29,22 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # slices, two launches) from the plane's size and the pointers
 # (``csrc/instance_norm.cu``)
 _FORMS = ("vector", "general", "cluster", "split", "warp")
+# operations per element: forward sum, centred square, normalise, affine;
+# backward statistics 4, the two sums 5, dx 7
+OPS_PER_ELEM, BWD_OPS_PER_ELEM = 8, 16
+
+
+def fwd_work(x: torch.Tensor) -> tuple[int, int]:
+    """(operations, bytes) of a forward on ``x``, whatever runs it: x read
+    and y written once."""
+    return x.numel() * OPS_PER_ELEM, 2 * x.numel() * x.element_size()
+
+
+def bwd_work(x: torch.Tensor) -> tuple[int, int]:
+    """(operations, bytes) of a backward on ``x``: x and g read and dx
+    written once, scale read and dscale, dbias written once."""
+    return (x.numel() * BWD_OPS_PER_ELEM,
+            3 * x.numel() * x.element_size() + 3 * x.shape[1] * 4)
 
 
 def _stats_dtype(x: torch.Tensor) -> torch.dtype:
@@ -39,13 +56,14 @@ def instance_norm_reference(x: torch.Tensor, scale: torch.Tensor,
                             bias: torch.Tensor,
                             eps: float = 1e-5) -> torch.Tensor:
     """Plain PyTorch instance norm of NCHW ``x`` with f32 statistics."""
-    xf = x.to(_stats_dtype(x))
-    mu = xf.mean(dim=(2, 3), keepdim=True)
-    var = (xf - mu).square().mean(dim=(2, 3), keepdim=True)
-    y = (xf - mu) * torch.rsqrt(var + eps)
-    y = (y * scale.to(xf.dtype)[:, None, None]
-         + bias.to(xf.dtype)[:, None, None])
-    return y.to(x.dtype)
+    with kernel_work("instance_norm_fwd", lambda: fwd_work(x)):
+        xf = x.to(_stats_dtype(x))
+        mu = xf.mean(dim=(2, 3), keepdim=True)
+        var = (xf - mu).square().mean(dim=(2, 3), keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+        y = (y * scale.to(xf.dtype)[:, None, None]
+             + bias.to(xf.dtype)[:, None, None])
+        return y.to(x.dtype)
 
 
 def instance_norm_bwd_reference(x: torch.Tensor, g: torch.Tensor,
@@ -53,19 +71,20 @@ def instance_norm_bwd_reference(x: torch.Tensor, g: torch.Tensor,
     """Plain PyTorch backward of :func:`instance_norm_reference` for the
     output gradient ``g``: (dx in the type of x, dscale, dbias in the type
     of scale), the formula of the JAX package's ``_bwd``."""
-    xf = x.to(_stats_dtype(x))
-    gf = g.to(xf.dtype)
-    mu = xf.mean(dim=(2, 3), keepdim=True)
-    var = (xf - mu).square().mean(dim=(2, 3), keepdim=True)
-    inv = torch.rsqrt(var + eps)
-    xhat = (xf - mu) * inv
-    dscale = (gf * xhat).sum(dim=(0, 2, 3))
-    dbias = gf.sum(dim=(0, 2, 3))
-    gs = gf * scale.to(xf.dtype)[:, None, None]
-    m1 = gs.mean(dim=(2, 3), keepdim=True)
-    m2 = (gs * xhat).mean(dim=(2, 3), keepdim=True)
-    dx = inv * (gs - m1 - xhat * m2)
-    return dx.to(x.dtype), dscale.to(scale.dtype), dbias.to(scale.dtype)
+    with kernel_work("instance_norm_bwd", lambda: bwd_work(x)):
+        xf = x.to(_stats_dtype(x))
+        gf = g.to(xf.dtype)
+        mu = xf.mean(dim=(2, 3), keepdim=True)
+        var = (xf - mu).square().mean(dim=(2, 3), keepdim=True)
+        inv = torch.rsqrt(var + eps)
+        xhat = (xf - mu) * inv
+        dscale = (gf * xhat).sum(dim=(0, 2, 3))
+        dbias = gf.sum(dim=(0, 2, 3))
+        gs = gf * scale.to(xf.dtype)[:, None, None]
+        m1 = gs.mean(dim=(2, 3), keepdim=True)
+        m2 = (gs * xhat).mean(dim=(2, 3), keepdim=True)
+        dx = inv * (gs - m1 - xhat * m2)
+        return dx.to(x.dtype), dscale.to(scale.dtype), dbias.to(scale.dtype)
 
 
 _ENTRIES: dict = {}
@@ -138,17 +157,18 @@ def instance_norm_fwd(x: torch.Tensor, scale: torch.Tensor,
     _check_plane(x, "instance_norm_fwd")
     _check_channel_vectors(x, scale, bias)
     n, c, h, w = x.shape
-    y = torch.empty_like(x)
-    work = _work(x, backward=False)
-    form = ctypes.c_int(-1)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    err = _kernel_entry("scflow_instance_norm_fwd",
-                        [p, p, p, p, p, i, i, i, ctypes.c_float, i,
-                         ctypes.POINTER(i), p])(
-        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
-        None if work is None else work.data_ptr(), n * c, c, h * w, eps,
-        _DTYPES[x.dtype], ctypes.byref(form),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    with kernel_work("instance_norm_fwd", lambda: fwd_work(x)):
+        y = torch.empty_like(x)
+        work = _work(x, backward=False)
+        form = ctypes.c_int(-1)
+        p, i = ctypes.c_void_p, ctypes.c_int
+        err = _kernel_entry("scflow_instance_norm_fwd",
+                            [p, p, p, p, p, i, i, i, ctypes.c_float, i,
+                             ctypes.POINTER(i), p])(
+            x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
+            None if work is None else work.data_ptr(), n * c, c, h * w, eps,
+            _DTYPES[x.dtype], ctypes.byref(form),
+            torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "instance_norm_fwd")
     _count(instance_norm_fwd, form.value, x.dtype)
     return y
@@ -170,21 +190,22 @@ def instance_norm_bwd(x: torch.Tensor, g: torch.Tensor, scale: torch.Tensor,
                          f"{x.dtype} {tuple(x.shape)}")
     _check_channel_vectors(x, scale)
     n, c, h, w = x.shape
-    dx = torch.empty_like(x)
-    part = torch.empty(2, n * c, device=x.device, dtype=torch.float32)
-    dscale = torch.empty(c, device=x.device, dtype=torch.float32)
-    dbias = torch.empty_like(dscale)
-    work = _work(x, backward=True)
-    form = ctypes.c_int(-1)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    err = _kernel_entry("scflow_instance_norm_bwd",
-                        [p, p, p, p, p, p, p, p, i, i, i, ctypes.c_float, i,
-                         ctypes.POINTER(i), p])(
-        x.data_ptr(), g.data_ptr(), scale.data_ptr(), dx.data_ptr(),
-        part.data_ptr(), None if work is None else work.data_ptr(),
-        dscale.data_ptr(), dbias.data_ptr(), n * c, c, h * w, eps,
-        _DTYPES[x.dtype], ctypes.byref(form),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    with kernel_work("instance_norm_bwd", lambda: bwd_work(x)):
+        dx = torch.empty_like(x)
+        part = torch.empty(2, n * c, device=x.device, dtype=torch.float32)
+        dscale = torch.empty(c, device=x.device, dtype=torch.float32)
+        dbias = torch.empty_like(dscale)
+        work = _work(x, backward=True)
+        form = ctypes.c_int(-1)
+        p, i = ctypes.c_void_p, ctypes.c_int
+        err = _kernel_entry("scflow_instance_norm_bwd",
+                            [p, p, p, p, p, p, p, p, i, i, i, ctypes.c_float,
+                             i, ctypes.POINTER(i), p])(
+            x.data_ptr(), g.data_ptr(), scale.data_ptr(), dx.data_ptr(),
+            part.data_ptr(), None if work is None else work.data_ptr(),
+            dscale.data_ptr(), dbias.data_ptr(), n * c, c, h * w, eps,
+            _DTYPES[x.dtype], ctypes.byref(form),
+            torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "instance_norm_bwd")
     _count(instance_norm_bwd, form.value, x.dtype)
     return dx, dscale, dbias

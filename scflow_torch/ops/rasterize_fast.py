@@ -25,6 +25,7 @@ import ctypes
 
 import torch
 
+from ..utils.profiling import kernel_work
 from . import _build
 
 TILE = 32            # pixel tile edge (tile = TILE×TILE pixels)
@@ -33,6 +34,8 @@ K_FACES = 256        # per-tile face budget (the kernel's shared-memory cap)
 ID_BITS = 14
 BIG_KEY = 0x7F7F0000
 ATTR_PAD = 16        # per-vertex attribute channels padded to this
+OPS_PER_PAIR = 22    # operations per (pixel, listed face), csrc/rasterize.cu
+COEFF_USED = 14      # coefficients a face's pass reads: edges, z, id, ok
 
 
 def _coeff_table(tri_xy: torch.Tensor, tri_z: torch.Tensor,
@@ -130,10 +133,38 @@ def _check_inputs(coeff, bbox, attr, height, width, d_attr, k_faces):
                              f"{x.dtype} {tuple(x.shape)} on {x.device}")
 
 
+def tile_pass_work(coeff: torch.Tensor, bbox: torch.Tensor, height: int,
+                   width: int, d_attr: int,
+                   k_faces: int = K_FACES) -> tuple[int, int]:
+    """(operations, bytes) of one tile pass, whatever runs it: 22
+    operations per (pixel, listed face) pair of the tiles' filled slots
+    (this data's, :func:`_select_tiles`); each face's used coefficients
+    and 3·d_attr attribute floats read once, face ids, z and attributes
+    written once."""
+    n, f = coeff.shape[:2]
+    sel = _select_tiles(bbox.unbind(-1), coeff[..., 14] > 0, height, width,
+                        k_faces)
+    pairs = int((sel >= 0).sum()) * TILE * TILE
+    moved = (n * f * (COEFF_USED + 3 * d_attr) * 4
+             + n * height * width * (2 + d_attr) * 4)
+    return pairs * OPS_PER_PAIR, moved
+
+
 def rasterize_tiles_reference(coeff: torch.Tensor, bbox: torch.Tensor,
                               attr: torch.Tensor | None, height: int,
                               width: int, d_attr: int,
                               k_faces: int = K_FACES):
+    """Plain PyTorch tile pass (:func:`_tile_pass_plain`); under
+    ``utils.profiling.count_work`` it counts the kernel's work."""
+    with kernel_work("rasterize_tiles", lambda: tile_pass_work(
+            coeff, bbox, height, width, d_attr, k_faces)):
+        return _tile_pass_plain(coeff, bbox, attr, height, width, d_attr,
+                                k_faces)
+
+
+def _tile_pass_plain(coeff: torch.Tensor, bbox: torch.Tensor,
+                     attr: torch.Tensor | None, height: int, width: int,
+                     d_attr: int, k_faces: int):
     """Plain PyTorch tile pass: :func:`_select_tiles`, the TPU kernel's
     (P, K) formulation, then the decode.
 
@@ -246,18 +277,21 @@ def rasterize_tiles(coeff: torch.Tensor, bbox: torch.Tensor,
     _check_inputs(coeff, bbox, attr, height, width, d_attr, k_faces)
     n, f = coeff.shape[:2]
     dev = coeff.device
-    face_id = torch.empty(n, height, width, dtype=torch.int32, device=dev)
-    zbuf = torch.empty(n, height, width, dtype=torch.float32, device=dev)
-    attrs = torch.empty(n, height, width, d_attr, dtype=torch.float32,
-                        device=dev)
-    masks = torch.empty(mask_words(n, f, height, width), dtype=torch.int32,
-                        device=dev)
-    err = _kernel_entry()(
-        coeff.data_ptr(), bbox.data_ptr(),
-        None if attr is None else attr.data_ptr(),
-        face_id.data_ptr(), zbuf.data_ptr(), attrs.data_ptr(),
-        masks.data_ptr(), n, f, k_faces, height, width, d_attr,
-        torch.cuda.current_stream(dev).cuda_stream)
+    with kernel_work("rasterize_tiles", lambda: tile_pass_work(
+            coeff, bbox, height, width, d_attr, k_faces)):
+        face_id = torch.empty(n, height, width, dtype=torch.int32,
+                              device=dev)
+        zbuf = torch.empty(n, height, width, dtype=torch.float32, device=dev)
+        attrs = torch.empty(n, height, width, d_attr, dtype=torch.float32,
+                            device=dev)
+        masks = torch.empty(mask_words(n, f, height, width),
+                            dtype=torch.int32, device=dev)
+        err = _kernel_entry()(
+            coeff.data_ptr(), bbox.data_ptr(),
+            None if attr is None else attr.data_ptr(),
+            face_id.data_ptr(), zbuf.data_ptr(), attrs.data_ptr(),
+            masks.data_ptr(), n, f, k_faces, height, width, d_attr,
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "rasterize_tiles")
     rasterize_tiles.launches += 1
     if attr is None:

@@ -12,12 +12,17 @@ regularised limit, alternating block descent:
 2. object step (full mode only): independent damped GN solves per object
    at the corrected camera.
 
-Everything is true f32 (no TF32; these 6×6 systems reach condition ~1e8)
-and free of host syncs: ``torch.linalg.solve_ex(check_errors=False)``
-returns inf/NaN for a singular system, as JAX's solve does, and the
-finite guards act with ``torch.where``. The eval loop computes the dense
-per-slot targets once per packed batch (:func:`slot_targets`) and solves
-each image's group of slots apart (:func:`pose_graph_group`).
+Everything is true f32 whatever the process sets for TF32 (these 6×6
+systems reach condition ~1e8): the 3×3 products are elementwise f32 sums
+(``geometry/se3.py``'s ``matmul3`` / ``matvec3``) and the normal
+equations reductions, so no matmul runs before the solve, and the 6×6
+solve gives the same bits with TF32 on and off (chip_smoke checks the
+whole graph both ways). It is free of host syncs:
+``torch.linalg.solve_ex(check_errors=False)`` returns inf/NaN for a
+singular system, as JAX's solve does, and the finite guards act with
+``torch.where``. The eval loop computes the dense per-slot targets once
+per packed batch (:func:`slot_targets`) and solves each image's group of
+slots apart (:func:`pose_graph_group`).
 
 :func:`solve_pose_graph_sharded` splits the objects over the ranks of a
 process group: the camera sums are the only cross-rank part (two
@@ -31,6 +36,7 @@ import torch.distributed as dist
 
 from ..geometry.projection import depth_to_correspondences, pixel_grid
 from ..geometry.rotation import axis_angle_to_matrix
+from ..geometry.se3 import matmul3, matvec3, transform_points
 from .prng import pick_points
 
 
@@ -41,7 +47,7 @@ def _object_jacobian(points, r, t, k, weights, eps: float = 1e-2):
     camera correction act alike; the camera block is shared by sharing).
     ``eps`` clamps 1/z: a point driven to z≈0 would otherwise give entries
     ~1e18 whose normal equations overflow f32. Rows are scaled by √w."""
-    p_cam = points @ r.transpose(-1, -2) + t[..., None, :]
+    p_cam = transform_points(r, t, points)
     x, y, z = p_cam.unbind(-1)
     zi = 1.0 / z.clamp_min(eps)
     fu, fv = k[..., 0, 0, None], k[..., 1, 1, None]
@@ -60,8 +66,8 @@ def _object_jacobian(points, r, t, k, weights, eps: float = 1e-2):
 
 def _residuals(points, target_2d, r, t, k, weights, eps: float = 1e-8):
     """√w-scaled reprojection residuals (..., 2P), all u then all v."""
-    p_cam = points @ r.transpose(-1, -2) + t[..., None, :]
-    uvw = p_cam @ k.transpose(-1, -2)
+    p_cam = transform_points(r, t, points)
+    uvw = matvec3(k[..., None, :, :], p_cam)
     xy = uvw[..., :2] / (uvw[..., 2:3] + eps)
     res = (xy - target_2d) * weights.clamp_min(0.0).sqrt()[..., None]
     return res.transpose(-1, -2).flatten(-2)
@@ -91,7 +97,7 @@ def _solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def _compose(delta: torch.Tensor, r: torch.Tensor, t: torch.Tensor):
     """exp(δ)ₗ applied to poses: δ (..., 6) acts on r (..., 3, 3), t (..., 3)."""
     dr = axis_angle_to_matrix(delta[..., :3])
-    return dr @ r, (dr @ t[..., None])[..., 0] + delta[..., 3:]
+    return matmul3(dr, r), matvec3(dr, t) + delta[..., 3:]
 
 
 def _finite_or_zero(x: torch.Tensor) -> torch.Tensor:

@@ -107,7 +107,9 @@ def in_window(samples, t0: float, t1: float) -> dict:
 def phase_steps(step, batch) -> None:
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, record_function
+
+    from ..utils.profiling import checked_trace
 
     log = ClockLog(os.path.join("scflow_torch", "_build", "clocks.csv"))
     log.start()
@@ -119,16 +121,23 @@ def phase_steps(step, batch) -> None:
             torch.cuda.synchronize()
             plain.append((t0, time.time()))
         profiled = []
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+
+        def run():
+            profiled.clear()
             for _ in range(PROFILED_STEPS):
                 t0 = time.time()
                 with record_function("chip_diag_step"):
                     step(batch)
                     torch.cuda.synchronize()
                 profiled.append((t0, time.time()))
+
+        # a trace that holds every K1 and K2 kernel launched in it
+        prof, lost = checked_trace(run, [ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA])
     finally:
         samples = log.stop()
+    if prof is None:
+        raise AssertionError(f"chip_diag: every trace lost kernels {lost}")
 
     events = prof.events()
     # every kernel of a step ends before the step's synchronize returns, so

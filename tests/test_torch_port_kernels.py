@@ -732,3 +732,13 @@ def test_raft_network_card_vs_cpu(dev, family):
     assert rf.rasterize_tiles.launches - k1 == 1
     assert instance_norm_fwd.launches - k2 == 30
     assert torch.isfinite(out["rotations"]).all()
+
+
+def test_pose_graph_tf32_bit_equal(dev):
+    """The pose graph with TF32 on for matmuls and cuDNN gives the bits it
+    gives with TF32 off (``chip_smoke.pose_graph_tf32``: both modes of
+    ``solve_pose_graph`` on a seeded 6-object problem)."""
+    import chip_smoke
+
+    got = chip_smoke.pose_graph_tf32(None)
+    assert got["bit_equal"] and all(got["bit_equal"].values()), got

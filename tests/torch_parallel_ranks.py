@@ -1,5 +1,6 @@
 """Rank functions for the multi-process tests of the PyTorch port
-(``test_torch_port_parallel.py``, ``test_torch_port_pose_graph.py``).
+(``test_torch_port_parallel.py``, ``test_torch_port_pose_graph.py``,
+``test_torch_port_profile_tools.py``).
 
 Each runs in a process spawned by ``scflow_torch.parallel.mesh.spawn``
 inside a gloo group, so it must import by name and stay free of JAX:
@@ -252,3 +253,26 @@ def sharded_solve(inputs: dict) -> dict:
                                    t["rotations"], t["translations"],
                                    t["k"], t["weights"], iterations=5)
     return {k: v.numpy() for k, v in out.items()}
+
+
+def allreduce_off_by_one(sizes_mb: list):
+    """``comm_bench.allreduce_rank`` with an all-reduce that adds 1 to one
+    element: the rank's exact check must raise; returns its message."""
+    import torch.distributed as dist
+
+    from scflow_torch.tools import comm_bench
+
+    real = dist.all_reduce
+
+    def off_by_one(t, *args, **kwargs):
+        real(t, *args, **kwargs)
+        t.view(-1)[0] += 1
+
+    dist.all_reduce = off_by_one
+    try:
+        comm_bench.allreduce_rank(sizes_mb, "cpu")
+    except AssertionError as e:
+        return str(e)
+    finally:
+        dist.all_reduce = real
+    return None
