@@ -174,9 +174,11 @@ Phases (each prints one JSON line; any failed check raises):
           14², 28²), 13×17, the warp form's cap (16×32 at offset 1) and
           23² past it, the 240² and 256² stems of 480- and 512-pixel
           crops, 240×320, a view at storage offset 1, 700² and 1024²
-          (past a cluster: the split form) and 700² of values 1e3 ± 1
+          (past a cluster: the split form), 700² of values 1e3 ± 1
           (± 64 in bf16, whose step there is 4; against float64, within
-          what an f32 mean's rounding at 1e3 moves); the form each takes
+          what an f32 mean's rounding at 1e3 moves), ResNet-50's 175² at
+          1400² (128 channels) and 56² at storage offset 3 (the general
+          form); the form each takes
           (vector, warp, general, cluster, split), device time against the
           bound and F.instance_norm's, each kernel's profiled ms past the
           vector form (k2_kernels'), the bytes each form moves, at the k2
@@ -327,17 +329,22 @@ RASTER_MISMATCH = 1e-3
 # form's cap (16×32 at an offset: 512 elements) and the first plane past
 # it (23²), the stems of 480- and 512-pixel crops, the half-resolution
 # plane of a 480×640 frame, a view whose storage starts one element into
-# its buffer, planes past a cluster (700², 1024²: the split form) and 700²
-# of values 1e3 ± 1; (channels, height, width, storage offset, loc: values
-# loc ± 1, loc ± K2_BF16_SPREAD in bf16, else N(0.5, 2)), forward at the
-# eval batch, backward at the train batch
+# its buffer, planes past a cluster (700², 1024²: the split form), 700²
+# of values 1e3 ± 1, ResNet-50's 175² planes at 1400² at that stage's
+# width and its layer-1 planes at 224² in a view starting 3 elements in
+# (the general form; each plane 3 elements past a 16-byte line, a head of
+# 5 bf16 or 1 f32 before the next);
+# (channels, height, width, storage offset, loc: values loc ± 1, loc ±
+# K2_BF16_SPREAD in bf16, else N(0.5, 2)), forward at the eval batch,
+# backward at the train batch
 K2_PLANES = ((2048, 7, 7, 0, 0.0), (1024, 14, 14, 0, 0.0),
              (512, 28, 28, 0, 0.0), (64, 13, 17, 0, 0.0),
              (64, 16, 32, 1, 0.0), (64, 23, 23, 0, 0.0),
              (64, 240, 240, 0, 0.0), (64, 256, 256, 0, 0.0),
              (64, 240, 320, 0, 0.0), (96, 64, 64, 1, 0.0),
              (4, 700, 700, 0, 0.0), (2, 1024, 1024, 0, 0.0),
-             (4, 700, 700, 0, 1e3))
+             (4, 700, 700, 0, 1e3), (128, 175, 175, 0, 0.0),
+             (64, 56, 56, 3, 0.0))
 # K2's forms past the vector form, as the wrappers count them; the split
 # form reads x twice forward, x and g twice backward
 K2_FORMS = ("general", "warp", "cluster", "split")

@@ -38,12 +38,35 @@
 //     all before it reduces any. One CTA per small plane was bound by CTA
 //     launches, not bytes; at 7x7 the warp form is still bound by its
 //     launch and latency more than by bytes (PERF.md).
-//  1. general form: the other planes of at most kMaxPlane elements (an odd
-//     H*W such as 25x25 or 50x50, a base that is not 16-byte aligned). One
-//     CTA per plane of 32 to 1024 threads (about 8 elements a thread), each
-//     thread on elements t, t + T, ...: every load and store is a
-//     coalesced scalar access. The plane is staged in shared memory, so it
-//     is read once. Two-pass f32 statistics.
+//  1. general form: the other planes of 513 to kMaxPlane elements (an odd H*W
+//     such as 23x23 or ResNet-50's 175x175 at 1400-pixel inputs, a base that
+//     is not 16-byte aligned). Bound: bytes, as every form. Its first design
+//     moved every element in a scalar access and staged the plane as f32
+//     (bound by issue and latency: bf16 took 83% of f32's time), read g twice
+//     and reduced dscale in a second launch. Now each plane is cut at its own
+//     16-byte boundaries into slots of 4 f32 or 8 bf16 (its phase changes from
+//     plane to plane with an odd H*W or an offset view; a scalar head and
+//     tail, whole slots between). A plane goes to one CTA of 64 to 512
+//     threads, about 8 slots a thread (more threads held a large plane's CTA
+//     alone on an SM by its registers), or, up to 256 slots (1,021 f32, 2,041
+//     bf16 elements), to one warp, eight planes a CTA. Whole slots go into
+//     shared memory kept in the plane's own type by 16-byte cp.async (every
+//     copy of a thread in flight before the first sum); the statistics take
+//     two passes over shared memory in 16-byte reads, one reduction each (a
+//     barrier a CTA, none a warp). The output is written in its own slots with
+//     16-byte stores; where its phase differs from x's (a fresh y beside an
+//     offset x), each slot's values are read across 16-byte lines (bf16 as
+//     32-bit words). A CTA stages at most 112 KB, so that two share an SM,
+//     unless that leaves more than an eighth of the plane unstaged; then up to
+//     226 KB. Past it, a plane's first slots are staged and the rest read from
+//     device memory in each pass, from L2 after the first. The backward stages
+//     x, then g in what is left, sums the pairs (sum x, sum g) and (sum
+//     (x-m)^2, sum g(x-m)) in two reductions and writes dx once; dscale and
+//     dbias come in the same launch: each plane's group writes its two sums,
+//     fences them, and draws a ticket from a counter that the wrapper keeps
+//     per (device, stream); the group that draws the last ticket adds the sums
+//     in the order of instance_norm_bwd_reduce and returns the counter to 0.
+//     No float atomics: two launches give equal bits.
 //  2. cluster form: planes of kMaxPlane < H*W <= 458,752 elements (the
 //     240x240 and 256x256 stems of 480- and 512-pixel crops, the 240x320
 //     half-resolution plane of a 480x640 frame). A thread-block cluster of
@@ -75,7 +98,10 @@
 //     design past 16 * kMaxPlane elements; the split form takes any size.)
 // Bound of every form: 2 * numel * sizeof(x) bytes forward (3 * numel
 // backward) over 3.35 TB/s; the split form moves 3 * numel * sizeof(x)
-// forward (5 * numel backward), less what its second launch finds in L2.
+// forward (5 * numel backward), less what its second launch finds in L2;
+// the general form reads what it cannot stage (f32 planes past 28,669
+// elements, bf16 past 28,665 backward) three times, less what the later
+// reads find in L2.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -91,7 +117,6 @@ constexpr int kWarps = kThreads / 32;
 // largest plane staged whole in shared memory, f32 (224 KB of the 227 KB a
 // block may use)
 constexpr int kMaxPlane = 56 * 1024;
-constexpr int kMaxThreads = 1024;
 // the cluster form: up to 8 CTAs (the portable cluster size) share a plane,
 // each staging a slice of at most kMaxPlane elements; slices of about
 // kClusterSlice elements keep three CTAs of 512 threads on an SM
@@ -380,8 +405,7 @@ __device__ __forceinline__ bool on16(const void* p) {
   return ((uintptr_t)p & 15u) == 0;
 }
 
-// ---- the general form (form 1): any length up to kMaxPlane, any
-// element-aligned base ----
+// ---- helpers of the forms below ----
 
 // sum over a block of any multiple of 32 threads up to 1024
 __device__ __forceinline__ float block_sum_any(float v, float* scratch) {
@@ -406,95 +430,6 @@ __device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// mean and inv = rsqrt(var + eps) of one plane, staging it in `staged`
-template <typename T>
-__device__ __forceinline__ void plane_stats(const T* xp, int hw, float eps,
-                                            float* staged, float* scratch,
-                                            float& mean, float& inv) {
-  float sum = 0.f;
-#pragma unroll 4
-  for (int e = threadIdx.x; e < hw; e += blockDim.x) {
-    const float v = load1(xp + e);
-    staged[e] = v;
-    sum += v;
-  }
-  mean = block_sum_any(sum, scratch) / hw;   // its barrier publishes staged
-  float sq = 0.f;
-#pragma unroll 4
-  for (int e = threadIdx.x; e < hw; e += blockDim.x) {
-    const float d = staged[e] - mean;
-    sq += d * d;
-  }
-  inv = rsqrtf(block_sum_any(sq, scratch) / hw + eps);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kMaxThreads)
-instance_norm_fwd_any(const T* __restrict__ x, const float* __restrict__ scale,
-                      const float* __restrict__ bias, T* __restrict__ y,
-                      int channels, int hw, float eps) {
-  extern __shared__ float staged[];  // the plane
-  __shared__ float scratch[32];
-  const size_t base = (size_t)blockIdx.x * hw;
-  const T* xp = x + base;
-  T* yp = y + base;
-  const int c = blockIdx.x % channels;
-  float mean, inv;
-  plane_stats(xp, hw, eps, staged, scratch, mean, inv);
-  const float g = scale[c], bb = bias[c];
-#pragma unroll 4
-  for (int e = threadIdx.x; e < hw; e += blockDim.x)
-    store1(yp + e, __fadd_rn(__fmul_rn(__fmul_rn(staged[e] - mean, inv), g),
-                             bb));
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kMaxThreads)
-instance_norm_bwd_any(const T* __restrict__ x, const T* __restrict__ g,
-                      const float* __restrict__ scale, T* __restrict__ dx,
-                      float* __restrict__ part_scale,
-                      float* __restrict__ part_bias, int channels, int hw,
-                      float eps) {
-  extern __shared__ float staged[];
-  __shared__ float scratch[32];
-  const size_t base = (size_t)blockIdx.x * hw;
-  const T* xp = x + base;
-  const T* gp = g + base;
-  T* dxp = dx + base;
-  const int c = blockIdx.x % channels;
-  float mean, inv;
-  plane_stats(xp, hw, eps, staged, scratch, mean, inv);
-  float sg = 0.f, sgx = 0.f;
-#pragma unroll 4
-  for (int e = threadIdx.x; e < hw; e += blockDim.x) {
-    const float gk = load1(gp + e);
-    sg += gk;
-    sgx += gk * ((staged[e] - mean) * inv);
-  }
-  sg = block_sum_any(sg, scratch);
-  sgx = block_sum_any(sgx, scratch);
-  if (threadIdx.x == 0) {
-    part_scale[blockIdx.x] = sgx;
-    part_bias[blockIdx.x] = sg;
-  }
-  const float s = scale[c];
-  const float m1 = s * sg / hw;
-  const float m2 = s * sgx / hw;
-#pragma unroll 4
-  for (int e = threadIdx.x; e < hw; e += blockDim.x) {
-    const float xh = (staged[e] - mean) * inv;
-    // an unfused g * s: its rounding cancels m1's exactly on a 1-element
-    // plane, where dx is 0
-    store1(dxp + e, inv * (__fmul_rn(load1(gp + e), s) - m1 - xh * m2));
-  }
-}
-
-// threads per CTA of the general form: ~8 elements a thread, 32 to 1024
-inline int any_threads(int hw) {
-  const int t = ((hw + 8 * 32 - 1) / (8 * 32)) * 32;
-  return t < 32 ? 32 : (t > kMaxThreads ? kMaxThreads : t);
-}
-
 template <typename K>
 cudaError_t stage_smem(K kernel, size_t smem, size_t* smem_set) {
   if (smem <= *smem_set) return cudaSuccess;
@@ -504,19 +439,6 @@ cudaError_t stage_smem(K kernel, size_t smem, size_t* smem_set) {
   return err;
 }
 
-template <typename T>
-cudaError_t launch_any(const void* x, const float* scale, const float* bias,
-                       void* y, int planes, int channels, int hw, float eps,
-                       cudaStream_t stream) {
-  const size_t smem = (size_t)hw * sizeof(float);
-  static size_t smem_set = 48 * 1024;
-  const cudaError_t err = stage_smem(instance_norm_fwd_any<T>, smem, &smem_set);
-  if (err != cudaSuccess) return err;
-  instance_norm_fwd_any<T><<<planes, any_threads(hw), smem, stream>>>(
-      (const T*)x, scale, bias, (T*)y, channels, hw, eps);
-  return cudaGetLastError();
-}
-
 // dscale, dbias from the per-plane sums `part` (2, planes)
 cudaError_t launch_bwd_reduce(const float* part, float* dscale, float* dbias,
                               int planes, int channels, cudaStream_t stream) {
@@ -524,23 +446,6 @@ cudaError_t launch_bwd_reduce(const float* part, float* dscale, float* dbias,
                              0, stream>>>(part, part + planes, dscale, dbias,
                                           planes / channels, channels);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_bwd_any(const void* x, const void* g, const float* scale,
-                           void* dx, float* part, float* dscale, float* dbias,
-                           int planes, int channels, int hw, float eps,
-                           cudaStream_t stream) {
-  const size_t smem = (size_t)hw * sizeof(float);
-  static size_t smem_set = 48 * 1024;
-  cudaError_t err = stage_smem(instance_norm_bwd_any<T>, smem, &smem_set);
-  if (err != cudaSuccess) return err;
-  instance_norm_bwd_any<T><<<planes, any_threads(hw), smem, stream>>>(
-      (const T*)x, (const T*)g, scale, (T*)dx, part, part + planes, channels,
-      hw, eps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return launch_bwd_reduce(part, dscale, dbias, planes, channels, stream);
 }
 
 // ---- the warp form (form 4): planes of at most kWarpPlane elements, one
@@ -1454,6 +1359,470 @@ cudaError_t launch_bwd_cluster(const void* x, const void* g,
   return cudaGetLastError();
 }
 
+// ---- the general form (form 1, redesigned for Hopper; its note is at the
+// top): a plane of 513 to kMaxPlane elements at any element-aligned base,
+// cut into 16-byte slots ----
+
+// A plane of hw elements of T whose first element lies `ph` elements past
+// a 16-byte boundary (its phase) covers the slots k = 0 .. slots - 1 of
+// V = Pack<T>::n elements: slot k holds its elements [k V - ph, (k + 1) V -
+// ph) that lie in [0, hw). Every slot is whole, at a 16-byte aligned
+// address, except at most the first (the head) and the last (the tail).
+template <typename T>
+__device__ __forceinline__ int phase_of(const T* p) {
+  return (int)(((uintptr_t)p & 15u) / sizeof(T));
+}
+
+// the most slots a plane of hw elements covers, whatever its phase
+__host__ __device__ constexpr int any_pitch(int hw, int v) {
+  return (hw + 2 * v - 2) / v;
+}
+
+// slots a thread takes (about), and the most threads a CTA: 512, so that
+// two CTAs of a large plane fit an SM's registers (the bf16 backward takes
+// ~60 a thread)
+constexpr int kAnySlotsPerThread = 8;
+constexpr int kAnyThreads = 512;
+
+// The threads that take one plane: the CTA (a plane a CTA), or with kWarp
+// one warp (a plane a warp, kWarpsPerCta planes a CTA: planes of at most
+// 32 * kAnySlotsPerThread slots, which a CTA of one warp each took ~6%
+// longer at 23x23; PERF.md). t: this thread's index among them, n: their
+// number.
+template <bool kWarp>
+struct Group {
+  int t, n;
+  __device__ __forceinline__ Group()
+      : t(kWarp ? (int)threadIdx.x % 32 : (int)threadIdx.x),
+        n(kWarp ? 32 : (int)blockDim.x) {}
+  __device__ __forceinline__ void sync() const {
+    if (kWarp) __syncwarp();
+    else __syncthreads();
+  }
+};
+
+// f(e0, whole) for this thread's slots of a plane of hw elements at phase
+// ph: slots t, t + n, ... (neighbouring threads on neighbouring 16 bytes);
+// e0 is the slot's first element (negative in a head)
+template <int V, bool kWarp, typename F>
+__device__ __forceinline__ void for_slots(const Group<kWarp>& grp, int hw,
+                                          int ph, F f) {
+  const int slots = (ph + hw + V - 1) / V;
+  for (int k = grp.t; k < slots; k += grp.n) {
+    const int e0 = k * V - ph;
+    f(e0, e0 >= 0 && e0 + V <= hw);
+  }
+}
+
+// two bf16 in a 32-bit word, as floats (the first in the low half)
+__device__ __forceinline__ void bf16_pair(unsigned w, float* v) {
+  v[0] = __uint_as_float(w << 16);
+  v[1] = __uint_as_float(w & 0xffff0000u);
+}
+
+// the 8 bf16 at q, not 16-byte aligned, through 32-bit words: 4 words
+// where q is 4-byte aligned, else 5, each pair taken across two words
+__device__ __forceinline__ void bf16_words(const __nv_bfloat16* q, float* v) {
+  const uintptr_t a = (uintptr_t)q;
+  const unsigned* w = reinterpret_cast<const unsigned*>(a & ~(uintptr_t)3);
+  if ((a & 3u) == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) bf16_pair(w[i], v + 2 * i);
+    return;
+  }
+  unsigned lo = w[0];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const unsigned hi = w[i + 1];
+    bf16_pair(__byte_perm(lo, hi, 0x5432), v + 2 * i);
+    lo = hi;
+  }
+}
+
+// the V values of the slot at e0 of a plane of hw elements at p, in device
+// or shared memory: one 16-byte read where the slot is whole and p + e0
+// 16-byte aligned (p's phase is the slots'); a whole bf16 slot at another
+// phase through 32-bit words; else one by one, 0 outside the plane
+template <typename T>
+__device__ __forceinline__ void slot_load(const T* p, int e0, int hw,
+                                          bool whole, float* v) {
+  constexpr int V = Pack<T>::n;
+  if (whole && on16(p + e0)) {
+    Pack<T>::load(p + e0, v);
+    return;
+  }
+  if constexpr (sizeof(T) == 2) {
+    if (whole) {
+      bf16_words(p + e0, v);
+      return;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const int e = e0 + i;
+    v[i] = whole || (e >= 0 && e < hw) ? to_f(p[e]) : 0.f;
+  }
+}
+
+// A plane whose elements below `staged` sit in shared memory at s (element
+// e at s[e]) and the rest in device memory at p: the slot at e0 read from
+// the one that holds it, element by element where it holds both halves.
+template <typename T>
+struct Staged {
+  const T* s;
+  const T* p;
+  int staged;
+  __device__ __forceinline__ void load(int e0, int hw, bool whole,
+                                       float* v) const {
+    constexpr int V = Pack<T>::n;
+    if (e0 + V <= staged) {
+      slot_load(s, e0, hw, whole, v);
+    } else if (e0 >= staged) {
+      slot_load(p, e0, hw, whole, v);
+    } else {
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const int e = e0 + i;
+        v[i] = whole || (e >= 0 && e < hw)
+                   ? to_f(e < staged ? s[e] : p[e]) : 0.f;
+      }
+    }
+  }
+};
+
+// the values v of the slot at e0 (whole or not) stored into p, whose phase
+// is the slots'
+template <typename T>
+__device__ __forceinline__ void slot_store(T* p, int e0, int hw, bool whole,
+                                           const float* v) {
+  constexpr int V = Pack<T>::n;
+  if (whole) {
+    Pack<T>::store(p + e0, v);
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const int e = e0 + i;
+    if (e >= 0 && e < hw) store1(p + e, v[i]);
+  }
+}
+
+// The first `slots` slots of a plane of hw elements at p (phase ph) copied
+// into shared memory s so that s's element e sits where p's does in its
+// 16-byte line: s + ph is the staged plane, holding the elements below
+// slots * V - ph. Whole slots by 16-byte cp.async, every copy of the
+// thread in flight at once; then the head and the tail by scalars, one
+// element a thread, so that their loads overlap the copies. The caller
+// waits (cp_async_wait_all) and synchronises the group.
+template <typename T, bool kWarp>
+__device__ __forceinline__ void stage_any(const Group<kWarp>& grp,
+                                          const T* p, int hw, int ph,
+                                          int slots, T* s) {
+  constexpr int V = Pack<T>::n;
+  if (slots == 0) return;
+  T* d = s + ph;
+  const int head = min(hw, (V - ph) % V);
+  const int end = min(hw, slots * V - ph);   // the staged elements' end
+  const int whole = (end - head) / V;
+  for (int j = grp.t; j < whole; j += grp.n)
+    cp_async16(d + head + j * V, p + head + j * V);
+  for (int e = grp.t; e < head && e < end; e += grp.n) d[e] = p[e];
+  for (int e = head + whole * V + grp.t; e < end; e += grp.n) d[e] = p[e];
+}
+
+// sums over the CTA (any multiple of 32 threads up to 1024) of each
+// thread's v[0..N), returned to every thread in v: warp butterflies, then
+// every thread adds the warps' sums in warp order (the same bits in every
+// thread and every run). `scratch` (N * 32 floats) serves this call alone,
+// so one barrier is all it takes. With kWarp, the warp's butterflies alone.
+template <bool kWarp, int N>
+__device__ __forceinline__ void group_sums(float (&v)[N], float* scratch) {
+#pragma unroll
+  for (int k = 0; k < N; ++k) v[k] = warp_sum(v[k]);
+  if (kWarp) return;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) scratch[k * 32 + warp] = v[k];
+  }
+  __syncthreads();
+  const int warps = blockDim.x / 32;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    float t = 0.f;
+    for (int w = 0; w < warps; ++w) t += scratch[k * 32 + w];
+    v[k] = t;
+  }
+}
+
+// this thread's sum over its slots of a plane at phase ph
+template <typename T, bool kWarp>
+__device__ __forceinline__ float any_sum(const Group<kWarp>& grp,
+                                         const Staged<T>& a, int hw, int ph) {
+  constexpr int V = Pack<T>::n;
+  float t = 0.f;
+  for_slots<V>(grp, hw, ph, [&](int e0, bool whole) {
+    float v[V];
+    a.load(e0, hw, whole, v);
+#pragma unroll
+    for (int i = 0; i < V; ++i) t += v[i];
+  });
+  return t;
+}
+
+// the plane a group takes (planes past the last: none), and the group's
+// shared memory of `region` elements of T
+template <bool kWarp>
+__device__ __forceinline__ int any_plane() {
+  return kWarp ? (int)(blockIdx.x * kWarpsPerCta + threadIdx.x / 32)
+               : (int)blockIdx.x;
+}
+
+template <typename T, bool kWarp>
+__device__ __forceinline__ T* any_region(float4* smem4, int region) {
+  return reinterpret_cast<T*>(smem4) +
+         (kWarp ? (size_t)(threadIdx.x / 32) * region : 0);
+}
+
+// Forward. sx: x's slots staged (the first sx of the plane, all where
+// they fit the CTA's share of shared memory), region: a group's shared
+// memory in elements.
+template <typename T, bool kWarp>
+__global__ void __launch_bounds__(kAnyThreads)
+instance_norm_fwd_any(const T* __restrict__ x, const float* __restrict__ scale,
+                      const float* __restrict__ bias, T* __restrict__ y,
+                      int planes, int channels, int hw, int sx, int region,
+                      float eps) {
+  extern __shared__ float4 smem4[];
+  __shared__ float scratch[2][32];
+  constexpr int V = Pack<T>::n;
+  const int plane = any_plane<kWarp>();
+  if (plane >= planes) return;           // with kWarp: the whole warp
+  const Group<kWarp> grp;
+  const size_t base = (size_t)plane * hw;
+  const T* xp = x + base;
+  T* yp = y + base;
+  const int c = plane % channels;
+  const int px = phase_of(xp);
+  T* s = any_region<T, kWarp>(smem4, region);
+  const Staged<T> xa{s + px, xp, sx * V - px};
+  stage_any(grp, xp, hw, px, sx, s);
+  cp_async_wait_all();
+  grp.sync();
+  float t[1] = {any_sum(grp, xa, hw, px)};
+  group_sums<kWarp>(t, scratch[0]);
+  const float mean = t[0] / hw;
+  float q[1] = {0.f};
+  for_slots<V>(grp, hw, px, [&](int e0, bool whole) {
+    float v[V];
+    xa.load(e0, hw, whole, v);
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const int e = e0 + i;
+      const float d = whole || (e >= 0 && e < hw) ? v[i] - mean : 0.f;
+      q[0] += d * d;
+    }
+  });
+  group_sums<kWarp>(q, scratch[1]);
+  const float inv = rsqrtf(q[0] / hw + eps);
+  const float g = scale[c], bb = bias[c];
+  // y in its own slots: 16-byte stores; x read across 16-byte lines where
+  // x's phase is another
+  for_slots<V>(grp, hw, phase_of(yp), [&](int e0, bool whole) {
+    float v[V];
+    xa.load(e0, hw, whole, v);
+#pragma unroll
+    for (int i = 0; i < V; ++i)
+      v[i] = __fadd_rn(__fmul_rn(__fmul_rn(v[i] - mean, inv), g), bb);
+    slot_store(yp, e0, hw, whole, v);
+  });
+}
+
+// Backward, one launch: x and g staged (the first sx and sg slots: all
+// where they fit, x first), the pairs (sum x, sum g) and (sum (x - m)^2,
+// sum g (x - m)) in two reductions (sgx = inv * sum g (x - m), as the
+// cluster backward), dx in its own slots; each group writes its plane's
+// (sgx, sum g) to part, and the group that draws the last ticket sums them
+// into dscale and dbias.
+template <typename T, bool kWarp>
+__global__ void __launch_bounds__(kAnyThreads)
+instance_norm_bwd_any(const T* __restrict__ x, const T* __restrict__ g,
+                      const float* __restrict__ scale, T* __restrict__ dx,
+                      float* __restrict__ part_scale,
+                      float* __restrict__ part_bias,
+                      float* __restrict__ dscale, float* __restrict__ dbias,
+                      unsigned* __restrict__ tickets, int planes,
+                      int channels, int hw, int sx, int sg, int region,
+                      float eps) {
+  extern __shared__ float4 smem4[];
+  __shared__ float scratch[2][2 * 32];
+  __shared__ bool last_cta;
+  constexpr int V = Pack<T>::n;
+  const int plane = any_plane<kWarp>();
+  if (plane >= planes) return;           // with kWarp: the whole warp
+  const Group<kWarp> grp;
+  const size_t base = (size_t)plane * hw;
+  const T* xp = x + base;
+  const T* gp = g + base;
+  T* dxp = dx + base;
+  const int c = plane % channels;
+  const int px = phase_of(xp), pg = phase_of(gp);
+  T* s = any_region<T, kWarp>(smem4, region);
+  T* sgb = s + sx * V;                   // g's staging after x's
+  const Staged<T> xa{s + px, xp, sx * V - px};
+  const Staged<T> ga{sgb + pg, gp, sg * V - pg};
+  stage_any(grp, xp, hw, px, sx, s);
+  stage_any(grp, gp, hw, pg, sg, sgb);
+  cp_async_wait_all();
+  grp.sync();
+  float s1[2] = {any_sum(grp, xa, hw, px), any_sum(grp, ga, hw, pg)};
+  group_sums<kWarp>(s1, scratch[0]);
+  const float mean = s1[0] / hw, sum_g = s1[1];
+  float s2[2] = {0.f, 0.f};              // (sum d^2, sum g d), d = x - mean
+  for_slots<V>(grp, hw, px, [&](int e0, bool whole) {
+    float xv[V], gv[V];
+    xa.load(e0, hw, whole, xv);
+    ga.load(e0, hw, whole, gv);
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const int e = e0 + i;
+      const float d = whole || (e >= 0 && e < hw) ? xv[i] - mean : 0.f;
+      s2[0] += d * d;
+      s2[1] += gv[i] * d;
+    }
+  });
+  group_sums<kWarp>(s2, scratch[1]);
+  const float inv = rsqrtf(s2[0] / hw + eps);
+  const float sgx = inv * s2[1];
+  bool last = false;
+  if (grp.t == 0) {
+    part_scale[plane] = sgx;
+    part_bias[plane] = sum_g;
+    __threadfence();                     // the sums before the ticket
+    last = atomicAdd(tickets, 1u) == (unsigned)planes - 1u;
+  }
+  const float sc = scale[c];
+  const float m1 = sc * sum_g / hw;      // mean(gs)
+  const float m2 = sc * sgx / hw;        // mean(gs * x_hat)
+  for_slots<V>(grp, hw, phase_of(dxp), [&](int e0, bool whole) {
+    float xv[V], gv[V];
+    xa.load(e0, hw, whole, xv);
+    ga.load(e0, hw, whole, gv);
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const float xh = (xv[i] - mean) * inv;
+      // an unfused g * s, as every form
+      xv[i] = inv * (__fmul_rn(gv[i], sc) - m1 - xh * m2);
+    }
+    slot_store(dxp, e0, hw, whole, xv);
+  });
+  if (kWarp) {
+    last = __shfl_sync(0xffffffffu, last, 0);
+  } else {
+    if (grp.t == 0) last_cta = last;
+    __syncthreads();
+    last = last_cta;
+  }
+  if (!last) return;
+  // every other plane's sums are in part (each group fenced them before
+  // its ticket): dscale[c] = sum over n of part_scale[n, c] in n order, as
+  // instance_norm_bwd_reduce adds them; read past L1
+  __threadfence();
+  const int samples = planes / channels;
+  for (int ch = grp.t; ch < channels; ch += grp.n) {
+    float ss = 0.f, sb = 0.f;
+    for (int n = 0; n < samples; ++n) {
+      ss += __ldcg(part_scale + (size_t)n * channels + ch);
+      sb += __ldcg(part_bias + (size_t)n * channels + ch);
+    }
+    dscale[ch] = ss;
+    dbias[ch] = sb;
+  }
+  if (grp.t == 0) *tickets = 0u;         // ready for the stream's next call
+}
+
+// threads of a general-form CTA for a plane of `slots` 16-byte slots:
+// about kAnySlotsPerThread a thread, a multiple of 32 from 32 to
+// kAnyThreads (one warp at 23x23 in f32: such planes go a warp each,
+// kWarpsPerCta a CTA)
+inline int any_threads(int slots) {
+  const int t = (slots + kAnySlotsPerThread - 1) / kAnySlotsPerThread;
+  const int w = (t + 31) / 32 * 32;
+  return w < 32 ? 32 : (w > kAnyThreads ? kAnyThreads : w);
+}
+
+// A CTA's shared memory for staging: two CTAs an SM (of its 228 KB, 1 KB
+// reserved a CTA, the static arrays under 1 KB), or a whole SM's where two
+// would leave more than an eighth of the plane unstaged. Past it, a
+// plane's first slots are staged and the rest read from device memory in
+// each pass (from L2 after the first, where it stays). Measured at
+// 175x175 (PERF.md): the f32 forward and the bf16 backward, an eighth or
+// less unstaged at two CTAs an SM, ran faster than at one, the f32
+// backward (half of x and g unstaged) slower.
+constexpr int kAnyStage = 112 * 1024;
+constexpr int kAnyStageSm = 226 * 1024;
+
+// The general form's launch: with one warp's worth of threads a plane, a
+// plane a warp; x staged first, then g (backward) in what is left.
+struct AnyLaunch {
+  bool warp;
+  int threads, ctas, sx, sg, region;
+  size_t smem;
+};
+
+inline AnyLaunch any_launch(int planes, int hw, int v, bool backward) {
+  AnyLaunch a;
+  const int pitch = any_pitch(hw, v);
+  a.threads = any_threads(pitch);
+  a.warp = a.threads == 32;
+  const int need = (backward ? 2 : 1) * pitch;   // slots
+  const int two = kAnyStage / 16;
+  const int stage = 8 * (need - two) <= need ? two : kAnyStageSm / 16;
+  a.sx = pitch < stage ? pitch : stage;
+  a.sg = !backward ? 0 : (pitch < stage - a.sx ? pitch : stage - a.sx);
+  a.region = (a.sx + a.sg) * v;
+  const int groups = a.warp ? kWarpsPerCta : 1;
+  a.smem = (size_t)groups * (a.sx + a.sg) * 16;
+  a.threads = a.warp ? kWarpsPerCta * 32 : a.threads;
+  a.ctas = a.warp ? (planes + kWarpsPerCta - 1) / kWarpsPerCta : planes;
+  return a;
+}
+
+template <typename T>
+cudaError_t launch_any(const void* x, const float* scale, const float* bias,
+                       void* y, int planes, int channels, int hw, float eps,
+                       cudaStream_t stream) {
+  const AnyLaunch a = any_launch(planes, hw, Pack<T>::n, false);
+  auto kernel = a.warp ? instance_norm_fwd_any<T, true>
+                       : instance_norm_fwd_any<T, false>;
+  static size_t smem_set[2] = {48 * 1024, 48 * 1024};
+  const cudaError_t err = stage_smem(kernel, a.smem, &smem_set[a.warp]);
+  if (err != cudaSuccess) return err;
+  kernel<<<a.ctas, a.threads, a.smem, stream>>>(
+      (const T*)x, scale, bias, (T*)y, planes, channels, hw, a.sx, a.region,
+      eps);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bwd_any(const void* x, const void* g, const float* scale,
+                           void* dx, float* part, unsigned* tickets,
+                           float* dscale, float* dbias, int planes,
+                           int channels, int hw, float eps,
+                           cudaStream_t stream) {
+  if (tickets == nullptr) return cudaErrorInvalidValue;
+  const AnyLaunch a = any_launch(planes, hw, Pack<T>::n, true);
+  auto kernel = a.warp ? instance_norm_bwd_any<T, true>
+                       : instance_norm_bwd_any<T, false>;
+  static size_t smem_set[2] = {48 * 1024, 48 * 1024};
+  const cudaError_t err = stage_smem(kernel, a.smem, &smem_set[a.warp]);
+  if (err != cudaSuccess) return err;
+  kernel<<<a.ctas, a.threads, a.smem, stream>>>(
+      (const T*)x, (const T*)g, scale, (T*)dx, part, part + planes, dscale,
+      dbias, tickets, planes, channels, hw, a.sx, a.sg, a.region, eps);
+  return cudaGetLastError();
+}
+
 bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
 
 // The form for planes of hw elements at these pointers: 0 vector, 1
@@ -1487,15 +1856,16 @@ cudaError_t launch_fwd_form(int form, const void* x, const float* sc,
 template <typename T>
 cudaError_t launch_bwd_form(int form, const void* x, const void* g,
                             const float* sc, void* dx, float* part,
-                            float* work, float* ds, float* db, int planes,
-                            int channels, int hw, float eps, cudaStream_t s) {
+                            float* work, unsigned* tickets, float* ds,
+                            float* db, int planes, int channels, int hw,
+                            float eps, cudaStream_t s) {
   switch (form) {
     case 0:
       return launch_bwd<T>(x, g, sc, dx, part, ds, db, planes, channels, hw,
                            eps, s);
     case 1:
-      return launch_bwd_any<T>(x, g, sc, dx, part, ds, db, planes, channels,
-                               hw, eps, s);
+      return launch_bwd_any<T>(x, g, sc, dx, part, tickets, ds, db, planes,
+                               channels, hw, eps, s);
     case 2:
       return launch_bwd_cluster<T>(x, g, sc, dx, part, ds, db, planes,
                                    channels, hw, eps, s);
@@ -1556,26 +1926,31 @@ extern "C" int scflow_instance_norm_fwd(const void* x, const void* scale,
 
 // x, g, dx (planes, hw) contiguous, of one dtype (0 = f32, 1 = bf16);
 // scale, dscale, dbias (channels,) f32; part (2, planes) f32 scratch for
-// the per-plane sums; work as for the forward, with backward = 1. *form
+// the per-plane sums; work as for the forward, with backward = 1;
+// tickets: one 32-bit counter, 0 before the call and 0 again after it,
+// which no launch on another stream uses at the same time (the general
+// form's CTAs draw tickets from it; the other forms leave it alone). *form
 // as for the forward (the vector form needs x, g and dx aligned).
 extern "C" int scflow_instance_norm_bwd(const void* x, const void* g,
                                         const void* scale, void* dx,
-                                        void* part, void* work, void* dscale,
-                                        void* dbias, int planes, int channels,
-                                        int hw, float eps, int dtype,
-                                        int* form, void* stream) {
+                                        void* part, void* work, void* tickets,
+                                        void* dscale, void* dbias, int planes,
+                                        int channels, int hw, float eps,
+                                        int dtype, int* form, void* stream) {
   if (bad_args(planes, channels, hw, dtype)) return (int)cudaErrorInvalidValue;
   *form = pick_form(hw, x, g, dx);
   const float* sc = (const float*)scale;
   float* pa = (float*)part;
   float* wk = (float*)work;
+  unsigned* tk = (unsigned*)tickets;
   float* ds = (float*)dscale;
   float* db = (float*)dbias;
   const cudaStream_t s = (cudaStream_t)stream;
   return dtype == 0
-             ? (int)launch_bwd_form<float>(*form, x, g, sc, dx, pa, wk, ds,
-                                           db, planes, channels, hw, eps, s)
+             ? (int)launch_bwd_form<float>(*form, x, g, sc, dx, pa, wk, tk,
+                                           ds, db, planes, channels, hw, eps,
+                                           s)
              : (int)launch_bwd_form<__nv_bfloat16>(*form, x, g, sc, dx, pa,
-                                                   wk, ds, db, planes,
+                                                   wk, tk, ds, db, planes,
                                                    channels, hw, eps, s);
 }

@@ -23,9 +23,10 @@ from . import _build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the kernels' forms by the code their entry reports: it picks the vector
 # form (one CTA per plane, 16-byte vectors), the warp form (one warp per
-# small plane, in registers), the general form (one CTA per plane, scalar
-# accesses, any plane up to one CTA's shared memory), the cluster form (a
-# plane over 2-8 CTAs) or the split form (a plane past a cluster cut into
+# small plane, in registers), the general form (a CTA or a warp per
+# plane, 16-byte slots cut at each plane's own alignment, any plane up to
+# 57,344 elements; its backward is one launch), the cluster form (a plane
+# over 2-8 CTAs) or the split form (a plane past a cluster cut into
 # slices, two launches) from the plane's size and the pointers
 # (``csrc/instance_norm.cu``)
 _FORMS = ("vector", "general", "cluster", "split", "warp")
@@ -136,6 +137,20 @@ def _work(x: torch.Tensor, backward: bool):
             if size else None)
 
 
+_TICKETS: dict = {}
+
+
+def _tickets(x: torch.Tensor, stream: torch.cuda.Stream) -> torch.Tensor:
+    """The ticket counter of the general form's backward for x's device
+    and ``stream``: one int32, zeroed once at first use and returned to 0
+    by every launch. One per (device, stream), so that
+    launches on two streams never draw from one counter."""
+    key = (x.device.index, stream.cuda_stream)
+    if key not in _TICKETS:      # zeroed on the device's current stream
+        _TICKETS[key] = torch.zeros(1, device=x.device, dtype=torch.int32)
+    return _TICKETS[key]
+
+
 def _check_channel_vectors(x: torch.Tensor, *vs: torch.Tensor) -> None:
     c = x.shape[1]
     for v in vs:
@@ -196,16 +211,17 @@ def instance_norm_bwd(x: torch.Tensor, g: torch.Tensor, scale: torch.Tensor,
         dscale = torch.empty(c, device=x.device, dtype=torch.float32)
         dbias = torch.empty_like(dscale)
         work = _work(x, backward=True)
+        stream = torch.cuda.current_stream(x.device)
         form = ctypes.c_int(-1)
         p, i = ctypes.c_void_p, ctypes.c_int
         err = _kernel_entry("scflow_instance_norm_bwd",
-                            [p, p, p, p, p, p, p, p, i, i, i, ctypes.c_float,
-                             i, ctypes.POINTER(i), p])(
+                            [p, p, p, p, p, p, p, p, p, i, i, i,
+                             ctypes.c_float, i, ctypes.POINTER(i), p])(
             x.data_ptr(), g.data_ptr(), scale.data_ptr(), dx.data_ptr(),
             part.data_ptr(), None if work is None else work.data_ptr(),
-            dscale.data_ptr(), dbias.data_ptr(), n * c, c, h * w, eps,
-            _DTYPES[x.dtype], ctypes.byref(form),
-            torch.cuda.current_stream(x.device).cuda_stream)
+            _tickets(x, stream).data_ptr(), dscale.data_ptr(),
+            dbias.data_ptr(), n * c, c, h * w, eps, _DTYPES[x.dtype],
+            ctypes.byref(form), stream.cuda_stream)
     _build.check(err, "instance_norm_bwd")
     _count(instance_norm_bwd, form.value, x.dtype)
     return dx, dscale, dbias

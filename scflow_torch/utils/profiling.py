@@ -134,8 +134,9 @@ SOURCE_PREFIX = "scflow.src:"
 # the kernels a K1 call launches: the binning, then the raster pass
 K1_KERNELS = ("bin_chunks_kernel", "rasterize_tiles_kernel")
 # K2's kernels by name (template arguments dropped), with the direction
-# and form whose launch runs each once; every backward launch also runs
-# instance_norm_bwd_reduce once
+# and form whose launch runs each once; a backward launch of every form
+# but the general one (which sums dscale and dbias in its own kernel)
+# also runs instance_norm_bwd_reduce once
 K2_KERNELS = {"instance_norm_fwd_kernel": ("fwd", "vector"),
               "instance_norm_fwd_warp": ("fwd", "warp"),
               "instance_norm_fwd_any": ("fwd", "general"),
@@ -149,6 +150,7 @@ K2_KERNELS = {"instance_norm_fwd_kernel": ("fwd", "vector"),
               "instance_norm_split_bwd_stats": ("bwd", "split"),
               "instance_norm_split_bwd": ("bwd", "split"),
               "instance_norm_bwd_reduce": ("bwd", None)}
+K2_BWD_REDUCE_FORMS = ("vector", "warp", "cluster", "split")
 PROFILE_TRIES = 3
 _KERNEL_NAME = re.compile("|".join((*K1_KERNELS, r"instance_norm_\w+")))
 
@@ -167,13 +169,14 @@ def launch_snapshot() -> tuple:
 def launched_kernels(before: tuple) -> collections.Counter:
     """The K1 and K2 kernels by name that the wrappers launched since the
     ``launch_snapshot`` ``before``: 2 a K1 call, K2's by its forms'
-    launches (``K2_KERNELS``; every backward launch adds one reduce)."""
+    launches (``K2_KERNELS``; a backward launch of a form of
+    ``K2_BWD_REDUCE_FORMS`` adds one reduce)."""
     k1, k2 = launch_snapshot()
     forms = collections.Counter()
     for d, counter in k2.items():
         for (form, _), n in (counter - before[1][d]).items():
             forms[d, form] += n
-            if d == "bwd":
+            if d == "bwd" and form in K2_BWD_REDUCE_FORMS:
                 forms[d, None] += n
     want = collections.Counter({k: forms[v] for k, v in K2_KERNELS.items()})
     for name in K1_KERNELS:

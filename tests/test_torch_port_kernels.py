@@ -8,6 +8,7 @@ Imports nothing of JAX. On a machine without JAX, leave out
 Without an NVIDIA GPU every test here skips.
 """
 import math
+import time
 
 import pytest
 import torch
@@ -352,6 +353,115 @@ def test_instance_norm_cluster_backward(dev, dtype, shape, offset):
     assert ((dbias.double() - db64).abs()
             <= 1e-5 * g.double().abs().sum((0, 2, 3))).all()
 
+
+
+# the general form (redesigned: 16-byte slots cut at each plane's own
+# alignment, staged in shared memory in the plane's type, a one-launch
+# backward): planes of 513 to 57,344 elements that the vector form does
+# not take, at every storage offset (each head length of f32 and bf16),
+# on each side of every limit inside the form: a warp a plane to a CTA a
+# plane (f32 1,021 | 1,022, bf16 2,041 | 2,042); in the backward, g
+# staged whole or in part (f32 14,333 | 14,334, bf16 28,665 | 28,666) and
+# the whole SM's shared memory taken (f32 16,381 | 16,382, bf16 32,761 |
+# 32,762, also where a CTA takes more than 8 slots a thread), g staged
+# in part again (f32 28,925 | 28,926); in the forward, x staged in part
+# (f32 28,669 | 28,670, bf16 57,337 | 57,338) and whole again in the
+# whole SM's (f32 32,765 | 32,766); the top (57,343 and 57,344); the first
+# general plane (513), 23², and ResNet-50's 175² planes at 1400² at that
+# stage's width (128 channels)
+GENERAL_PLANES = ([(2, 3, 1, hw) for hw in (
+    513, 1021, 1022, 2041, 2042, 14333, 14334, 16381, 16382, 28665, 28666,
+    28669, 28670, 28925, 28926, 32761, 32762, 32765, 32766, 57337, 57338,
+    57343, 57344)]
+                  + [(2, 3, 23, 23), (2, 128, 175, 175)])
+# host seconds a trace stays idle after it starts and before it stops
+# (chip_smoke's PROFILE_MARGIN_S: a margin for the drift between the
+# host's and the trace's clocks)
+TRACE_MARGIN_S = 0.05
+# every (shape, offset, dtype) whose view the vector form does not take:
+# an H·W that is not a multiple of 8, or a base off a 16-byte line
+GENERAL_CASES = [(shape, offset, dtype) for shape in GENERAL_PLANES
+                 for offset in range(8)
+                 for dtype in (torch.float32, torch.bfloat16)
+                 if (shape[2] * shape[3]) % 8
+                 or offset * (4 if dtype == torch.float32 else 2) % 16]
+
+
+@pytest.mark.parametrize("shape,offset,dtype", GENERAL_CASES)
+def test_instance_norm_general_form(dev, shape, offset, dtype):
+    """The general form's forward and backward within the encoders' bounds
+    of the plain versions, counted as the general form; a backward is one
+    launch (its kernel, and no reduce kernel, in a trace), and two calls
+    of each give equal bits (no float atomics)."""
+    import collections
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from scflow_torch.utils.profiling import traced_kernels
+
+    n, c, h, w = shape
+    gen = torch.Generator().manual_seed(h * w + offset)
+    x = offset_view((torch.randn(n, c, h, w, generator=gen) * 2 + 0.5).to(
+        dev, dtype), offset)
+    g = offset_view(torch.randn(n, c, h, w, generator=gen).to(dev, dtype),
+                    offset)
+    scale = (1 + 0.3 * torch.randn(c, generator=gen)).to(dev)
+    bias = (0.2 * torch.randn(c, generator=gen)).to(dev)
+    dt = "f32" if dtype == torch.float32 else "bf16"
+    f0 = instance_norm_fwd.form_launches["general", dt]
+    ys = [instance_norm_fwd(x, scale, bias) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert instance_norm_fwd.form_launches["general", dt] == f0 + 2
+    # a trace that lost a launch of the kernel itself is taken again (as
+    # profiling.checked_trace does), up to three times, each idle for
+    # chip_smoke's margin after it starts and before it stops
+    for _ in range(3):
+        b0 = instance_norm_bwd.form_launches["general", dt]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(TRACE_MARGIN_S)
+            grads = [instance_norm_bwd(x, g, scale) for _ in range(2)]
+            torch.cuda.synchronize()
+            time.sleep(TRACE_MARGIN_S)
+        assert instance_norm_bwd.form_launches["general", dt] == b0 + 2
+        traced = traced_kernels(prof)
+        if traced["instance_norm_bwd_any"] == 2:
+            break
+    assert traced == collections.Counter({"instance_norm_bwd_any": 2})
+    assert torch.equal(ys[0], ys[1])
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+    want = instance_norm_reference(x, scale, bias).float()
+    diff = (ys[0].float() - want).abs()
+    if dtype == torch.float32:
+        assert (diff <= 1e-5 + 1e-5 * want.abs()).all(), diff.max()
+    else:
+        assert (diff <= 1e-5 + bf16_step(want)).all(), diff.max()
+    assert_bwd_close(grads[0], instance_norm_bwd_reference(x, g, scale), x, g)
+
+
+def test_instance_norm_general_backward_streams(dev):
+    """General-form backward launches on two streams at once draw tickets
+    from counters of their own: every call gives the bits of a call alone
+    on the default stream."""
+    gen = torch.Generator().manual_seed(11)
+    x = (torch.randn(8, 64, 23, 23, generator=gen) * 2 + 0.5).to(dev)
+    g = torch.randn(8, 64, 23, 23, generator=gen).to(dev)
+    scale = (1 + 0.3 * torch.randn(64, generator=gen)).to(dev)
+    b0 = instance_norm_bwd.form_launches["general", "f32"]
+    want = instance_norm_bwd(x, g, scale)
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    got = []
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    for _ in range(4):
+        for s in streams:
+            with torch.cuda.stream(s):
+                got.append(instance_norm_bwd(x, g, scale))
+    torch.cuda.synchronize()
+    assert instance_norm_bwd.form_launches["general", "f32"] == b0 + 9
+    for grads in got:
+        for a, b in zip(grads, want):
+            assert torch.equal(a, b)
 
 def scene_inputs(dev, n=8, classes=5, subdivisions=3, size=256, seed=0,
                  k_faces=rf.K_FACES, shift=0.0, big_face=False, d_attr=9):

@@ -402,6 +402,34 @@ def test_traced_kernels_of_a_card_trace():
                              "instance_norm_bwd_reduce": 1})
 
 
+
+def test_launched_kernels_follow_the_backward_form():
+    """``launched_kernels``: every backward launch but the general form's
+    adds one reduce kernel (the general backward sums dscale and dbias in
+    its own kernel), counted from the wrappers' launches by form."""
+    import collections
+
+    from scflow_torch.ops.fused_norm import instance_norm_bwd, instance_norm_fwd
+    from scflow_torch.utils.profiling import launch_snapshot, launched_kernels
+
+    saved = {w: collections.Counter(w.form_launches)
+             for w in (instance_norm_fwd, instance_norm_bwd)}
+    try:
+        before = launch_snapshot()
+        instance_norm_bwd.form_launches["general", "f32"] += 2
+        instance_norm_bwd.form_launches["general", "bf16"] += 1
+        instance_norm_bwd.form_launches["warp", "bf16"] += 1
+        instance_norm_bwd.form_launches["split", "f32"] += 1
+        instance_norm_fwd.form_launches["general", "f32"] += 1
+        assert launched_kernels(before) == collections.Counter(
+            {"instance_norm_bwd_any": 3, "instance_norm_bwd_warp": 1,
+             "instance_norm_split_bwd_stats": 1, "instance_norm_split_bwd": 1,
+             "instance_norm_bwd_reduce": 2, "instance_norm_fwd_any": 1})
+    finally:
+        for w, counts in saved.items():
+            w.form_launches.clear()
+            w.form_launches.update(counts)
+
 def test_trace_categories():
     cat = profile_trace.category
     assert cat("void rasterize_tiles_kernel<9>(...)") == "K1"
