@@ -286,7 +286,10 @@ BOP_CPU_IMAGES = 2
 TRAIN_BOP_IMAGES, TRAIN_BOP_TEST_IMAGES, TRAIN_BOP_BACKGROUNDS = 48, 8, 4
 TRAIN_BOP_STEPS, TRAIN_BOP_EVERY, TRAIN_BOP_SCENE_STEPS = 6, 3, 2
 TRAIN_BOP_OCCLUSION_P = 0.3
-LOADER_BATCHES = {"filter0": (2, 6), "paeth": (1, 2)}   # (alone, prefetch)
+LOADER_BATCHES = {"filter0": (2, 6), "paeth": (2, 6)}   # (alone, prefetch)
+# the host library's C++ passes against their numpy witnesses: calls of
+# each in turns; the eval_bop loop's first images whose crops are held
+HOST_REPS, HOST_CROP_IMAGES = 5, 4
 # train_pbr: the committed JPEG fixtures (cv2's digests in their
 # manifest); the scflow_ycbv_mixpbr recipe over a JPEG train_pbr split (the
 # fixture frames), a PNG train_real split and the JPEG backgrounds as
@@ -2213,6 +2216,48 @@ def paeth_png(img) -> bytes:
             + chunk(b"IEND", b""))
 
 
+def in_turns(native, witness, reps: int = HOST_REPS) -> dict:
+    """Host ms of ``native()`` and ``witness()`` called in turns (native,
+    witness, witness, native, ...) on the same inputs: medians."""
+    ms = ([], [])
+    for r in range(reps):
+        for k in ((0, 1) if r % 2 == 0 else (1, 0)):
+            t0 = time.perf_counter()
+            (native, witness)[k]()
+            ms[k].append(1e3 * (time.perf_counter() - t0))
+    native_ms, witness_ms = map(statistics.median, ms)
+    return dict(ms=native_ms, witness_ms=witness_ms,
+                native_faster=native_ms < witness_ms)
+
+
+def held_to_witness(what: str, native, witness,
+                    reps: int = HOST_REPS) -> dict:
+    """Fail unless ``native()`` returns the bytes of ``witness()`` (an
+    array or a tuple of arrays: shape, dtype and bits); then both timed in
+    turns."""
+    got, want = native(), witness()
+    if not isinstance(got, tuple):
+        got, want = (got,), (want,)
+    check(len(got) == len(want) and all(
+        g.shape == w.shape and g.dtype == w.dtype and g.tobytes() == w.tobytes()
+        for g, w in zip(got, want)), f"{what}: the C++ differs from its witness")
+    return dict(bit_equal=True, **in_turns(native, witness, reps))
+
+
+def png_unfilter_held(what: str, data: bytes) -> dict:
+    """The C++ PNG unfiltering of a file's bytes held to its witness; the
+    inflate (zlib, shared by both) timed once."""
+    from scflow_torch.data import imageio
+
+    t0 = time.perf_counter()
+    raw, height, width, bpp, _ = imageio._inflate_png(data, what)
+    inflate_ms = 1e3 * (time.perf_counter() - t0)
+    args = (raw, height, width * bpp, bpp, what)
+    return dict(inflate_ms=inflate_ms, **held_to_witness(
+        what, lambda: imageio._unfilter_rows(*args),
+        lambda: imageio._unfilter_rows_np(*args), reps=3))
+
+
 def bop_cli_args(root: str, device: str, budget: int,
                  size: int = SIZE[0]) -> list:
     return ["--data-root", f"{root}/test", "--ref-annots-root",
@@ -2223,9 +2268,41 @@ def bop_cli_args(root: str, device: str, budget: int,
             "--device", device]
 
 
-def phase_eval_bop() -> tuple:
-    """The BOP eval CLI on a tree the port writes on the card; returns the
-    loop's launches of K1 and the K2 forward, and its results."""
+def eval_crops_held(builder, images: int) -> dict:
+    """The eval crop's C++ held to its witness on the crops the builder
+    makes for its first ``images`` items (their own boxes and frames);
+    host ms per image, in turns."""
+    from unittest import mock
+
+    import scflow_torch.data.loader as loader_mod
+    from scflow_torch.data.pipeline import (_crop_resize_pad_batch_np,
+                                            crop_resize_pad_batch)
+
+    calls = []
+
+    def recorded(*args, **kw):
+        calls.append((args, kw))
+        return crop_resize_pad_batch(*args, **kw)
+
+    with mock.patch.object(loader_mod, "crop_resize_pad_batch", recorded):
+        for i in range(images):
+            builder[i]
+    held = held_to_witness(
+        "eval_bop crop",
+        lambda: tuple(a for c in calls for a in crop_resize_pad_batch(
+            *c[0], **c[1])),
+        lambda: tuple(a for c in calls for a in _crop_resize_pad_batch_np(
+            *c[0], **c[1])))
+    return dict(images=images, objects=sum(len(c[0][1]) for c in calls),
+                ms_per_image=held.pop("ms") / images,
+                witness_ms_per_image=held.pop("witness_ms") / images, **held)
+
+
+def phase_eval_bop(smi: str) -> tuple:
+    """The BOP eval CLI on a tree the port writes on the card and on a copy
+    of it re-encoded with Paeth rows; the host library's PNG unfiltering
+    and eval crop held to their witnesses and timed; returns the first
+    run's launches of K1 and the K2 forward, and its results."""
     import os
     import tempfile
     from unittest import mock
@@ -2235,6 +2312,7 @@ def phase_eval_bop() -> tuple:
 
     import scflow_torch.test as cli
     import scflow_torch.training.evaluate as evaluate_mod
+    from scflow_torch.data import _build as host_build
     from scflow_torch.data.imageio import imread
     from scflow_torch.data.loader import TestBatchBuilder
     from scflow_torch.metrics import ADDMetric
@@ -2242,6 +2320,28 @@ def phase_eval_bop() -> tuple:
 
     t_phase = time.perf_counter()
     item_s, process_s, slots, seen = [], [], [], {}
+    t0 = time.perf_counter()
+    host_build.library()            # built here, not inside the loop
+    build = dict(seconds=time.perf_counter() - t0,
+                 cached=host_build.build_info["cached"],
+                 library=host_build.build_info["path"])
+
+    def tree_figures(builder, loop_s: float) -> dict:
+        """The host's figures of the loop just run, and the builder's
+        first items again, one at a time outside the loop."""
+        alone = []
+        for i in range(HOST_CROP_IMAGES):
+            t0 = time.perf_counter()
+            builder[i]
+            alone.append(1e3 * (time.perf_counter() - t0))
+        return dict(
+            loop_s=loop_s, batches=len(slots),
+            loop_over_batches_x_step=loop_s / (len(slots) * step_ms / 1e3),
+            decode_crop_ms_per_image_median=1e3 * statistics.median(item_s),
+            decode_crop_s_total=sum(item_s),
+            decode_crop_ms_per_image_alone=statistics.median(alone),
+            match_add_ms_per_image_median=1e3 * statistics.median(process_s),
+            match_add_s_total=sum(process_s))
 
     def host_timed(fn, into):
         def wrapped(*args, **kw):
@@ -2274,13 +2374,17 @@ def phase_eval_bop() -> tuple:
                           "--max-objects", str(BOP_OBJECTS[1]), "--seed", "0",
                           "--device", "cuda"])
         write_s = time.perf_counter() - t0
-        patches = [
-            mock.patch.object(TestBatchBuilder, "__getitem__", host_timed(
-                TestBatchBuilder.__getitem__, item_s)),
-            mock.patch.object(ADDMetric, "process", host_timed(
-                ADDMetric.process, process_s)),
-            mock.patch.object(evaluate_mod, "pack_eval_batches", packed),
-            mock.patch.object(evaluate_mod, "evaluate_dataset", loop)]
+
+        def patched():
+            return [
+                mock.patch.object(TestBatchBuilder, "__getitem__", host_timed(
+                    TestBatchBuilder.__getitem__, item_s)),
+                mock.patch.object(ADDMetric, "process", host_timed(
+                    ADDMetric.process, process_s)),
+                mock.patch.object(evaluate_mod, "pack_eval_batches", packed),
+                mock.patch.object(evaluate_mod, "evaluate_dataset", loop)]
+
+        patches = patched()
         for p in patches:
             p.start()
         try:
@@ -2317,6 +2421,7 @@ def phase_eval_bop() -> tuple:
         on_card = {k: torch.from_numpy(first[k]).cuda()
                    for k in evaluate_mod.EVAL_KEYS}
         step_ms = call_ms(lambda: trainer.eval_step(on_card), 5, 1)
+        loops = {"filter0": tree_figures(builder, seen["loop_s"])}
 
         # the first images again, on the CPU, in one batch of their objects
         loop_s, card_records = seen["loop_s"], seen["metric"].records_arrays()
@@ -2361,6 +2466,39 @@ def phase_eval_bop() -> tuple:
             add_abs = max(add_abs, float(diff.max()))
             add_rel = max(add_rel, float((diff / ref).max()))
 
+        # the host library's eval crop on the loop's first items, then the
+        # same loop over the tree's frames re-encoded with Paeth rows
+        crop_held = eval_crops_held(builder, HOST_CROP_IMAGES)
+        t0 = time.perf_counter()
+        paeth_test = paeth_copy(f"{root}/test", f"{root}/paeth_test")
+        copy_s = time.perf_counter() - t0
+        for spent in (item_s, process_s, slots):
+            spent.clear()
+        args = bop_cli_args(root, "cuda", BOP_BUDGET)
+        args[args.index("--data-root") + 1] = paeth_test
+        patches = patched()
+        for p in patches:
+            p.start()
+        try:
+            _, paeth_results = cli.main(args + ["--save-dir",
+                                                f"{root}/res_paeth"])
+        finally:
+            for p in patches:
+                p.stop()
+        for g, c in zip(results, paeth_results):
+            check(g["img_id"] == c["img_id"] and np.allclose(
+                g["rotations"], c["rotations"], rtol=0,
+                atol=POSE_TOL["rot_atol"]) and np.allclose(
+                g["translations"], c["translations"],
+                rtol=POSE_TOL["trans_rtol"], atol=POSE_TOL["trans_atol"]),
+                  f"eval_bop: Paeth tree poses of image {g['img_id']}")
+        check(len(paeth_results) == len(results), "eval_bop: Paeth tree")
+        loops["paeth"] = dict(tree_figures(seen["builder"], seen["loop_s"]),
+                              tree_copy_s=copy_s)
+        frame_name = sorted(os.listdir(f"{paeth_test}/000001/rgb"))[0]
+        with open(f"{paeth_test}/000001/rgb/{frame_name}", "rb") as f:
+            paeth_frame = f.read()
+
         png = np.random.default_rng(0).integers(0, 256, (*BOP_FRAME, 3),
                                                 np.uint8)
         path = os.path.join(root, "paeth.png")
@@ -2369,8 +2507,13 @@ def phase_eval_bop() -> tuple:
         t0 = time.perf_counter()
         check(np.array_equal(imread(path), png), "eval_bop: Paeth PNG decode")
         paeth_s = time.perf_counter() - t0
+        with open(path, "rb") as f:
+            png_held = {"paeth_noise": png_unfilter_held(path, f.read()),
+                        "paeth_frame": png_unfilter_held(frame_name,
+                                                         paeth_frame)}
 
-    emit(phase="eval_bop", images=BOP_IMAGES, frame=list(BOP_FRAME),
+    emit(phase="eval_bop", card=smi, host_cpu=host_cpu(), images=BOP_IMAGES,
+         frame=list(BOP_FRAME),
          classes=NUM_CLASS, objects=tree["objects"], image=list(SIZE),
          iters=ITERS, lowres=True, dtype="float32", slot_budget=BOP_BUDGET,
          tree_write_s=write_s, batches=batches,
@@ -2379,10 +2522,9 @@ def phase_eval_bop() -> tuple:
          objects_per_s=tree["objects"] / loop_s,
          packed_step_ms_median=step_ms,
          batches_x_step_s=batches * step_ms / 1e3,
-         decode_crop_ms_per_image_median=1e3 * statistics.median(item_s),
-         decode_crop_s_total=sum(item_s),
-         match_add_ms_per_image_median=1e3 * statistics.median(process_s),
-         match_add_s_total=sum(process_s),
+         **{k: loops["filter0"][k] for k in (
+             "decode_crop_ms_per_image_median", "decode_crop_s_total",
+             "match_add_ms_per_image_median", "match_add_s_total")},
          launches_per_batch={"rasterize_tiles": k1 / batches,
                              "instance_norm_fwd": k2 / batches},
          metric={k: metrics[k] for k in ("average/add_0.10d", "instance/auc",
@@ -2394,6 +2536,8 @@ def phase_eval_bop() -> tuple:
                      "add_rtol": EVAL_ERR_RTOL, "add_pose_bound": pose_bound,
                      "cpu_seconds": cpu_s, **POSE_TOL},
          paeth_png_decode_s=paeth_s, bop_file_equal=True,
+         trees=loops, host_library_build=build, host_crop=crop_held,
+         host_png_unfilter=png_held,
          phase_seconds=time.perf_counter() - t_phase)
     return k1, k2, results
 
@@ -2676,22 +2820,23 @@ def ycbv_layout(train: str, test: str, root: str) -> None:
                os.path.join(root, "data", "initial_poses", "ycbv_posecnn"))
 
 
-def paeth_copy(train: str, out: str) -> str:
-    """``train``'s train_real split with every frame re-encoded by
-    :func:`paeth_png` (masks and annotations linked); returns its root."""
+def paeth_copy(split: str, out: str) -> str:
+    """The BOP split directory ``split`` with every scene's frames
+    re-encoded by :func:`paeth_png` (masks and annotations linked);
+    returns its root."""
     import os
 
     from scflow_torch.data.imageio import imread
 
-    seq = os.path.join(train, "train_real", "000001")
-    dst = os.path.join(out, "000001")
-    os.makedirs(os.path.join(dst, "rgb"))
-    for name in os.listdir(seq):
-        if name != "rgb":
-            os.symlink(os.path.join(seq, name), os.path.join(dst, name))
-    for name in os.listdir(os.path.join(seq, "rgb")):
-        with open(os.path.join(dst, "rgb", name), "wb") as f:
-            f.write(paeth_png(imread(os.path.join(seq, "rgb", name))))
+    for scene in sorted(os.listdir(split)):
+        seq, dst = os.path.join(split, scene), os.path.join(out, scene)
+        os.makedirs(os.path.join(dst, "rgb"))
+        for name in os.listdir(seq):
+            if name != "rgb":
+                os.symlink(os.path.join(seq, name), os.path.join(dst, name))
+        for name in os.listdir(os.path.join(seq, "rgb")):
+            with open(os.path.join(dst, "rgb", name), "wb") as f:
+                f.write(paeth_png(imread(os.path.join(seq, "rgb", name))))
     return out
 
 
@@ -2708,12 +2853,18 @@ def measure_loader(builder, alone: int, through_prefetch: int) -> dict:
     spent = {"decode": [], "crop": [], "augment": []}
 
     def timed(kind, fn):
+        # an augmentation's time also goes to its own name
+        kinds = (kind, fn.__name__) if kind == "augment" else (kind,)
+        for k in kinds:
+            spent.setdefault(k, [])
+
         def wrapped(*args, **kw):
             t0 = time.perf_counter()
             try:
                 return fn(*args, **kw)
             finally:
-                spent[kind].append(time.perf_counter() - t0)
+                for k in kinds:
+                    spent[k].append(time.perf_counter() - t0)
         return wrapped
 
     targets = [(bop_mod, "imread", "decode"), (loader_mod, "imread", "decode"),
@@ -2732,7 +2883,11 @@ def measure_loader(builder, alone: int, through_prefetch: int) -> dict:
             builder()
         alone_s = time.perf_counter() - t0
         per_sample = {f"{k}_ms_per_sample": 1e3 * sum(v) / (alone * n)
-                      for k, v in spent.items()}
+                      for k, v in spent.items() if k in ("decode", "crop",
+                                                         "augment")}
+        per_sample["augment_ms_per_sample_by_function"] = {
+            k: 1e3 * sum(v) / (alone * n) for k, v in spent.items()
+            if k not in ("decode", "crop", "augment")}
         batches = loader_mod.prefetch(builder)
         t0 = time.perf_counter()
         for _ in range(through_prefetch):
@@ -2747,6 +2902,67 @@ def measure_loader(builder, alone: int, through_prefetch: int) -> dict:
                 samples_per_s_prefetch=through_prefetch * n / prefetch_s,
                 batch_s_prefetch=prefetch_s / through_prefetch,
                 batches=[alone, through_prefetch], **per_sample)
+
+
+def train_host_held(what: str, builder, png: str) -> dict:
+    """The train recipe's host passes held to their witnesses on the
+    phase's own data and timed in turns: the PNG unfiltering of the frame
+    ``png``; the train crop with its mask (the builder's first item and
+    object at its GT pose) with ``resize_linear`` and with its witness; the
+    background resize; and on the crop, the blurs, the color conversions
+    and RandomHSV's fused pass at seeded draws."""
+    from unittest import mock
+
+    import numpy as np
+
+    from scflow_torch.data import cvops, pipeline
+    from scflow_torch.data.imageio import imread
+
+    rng = np.random.default_rng(0)
+    item = next(it for it in (builder.dataset.get(i, rng)
+                              for i in range(len(builder.dataset)))
+                if it is not None)
+    label, k = int(item["labels"][0]), item["k"][0]
+    bbox = pipeline.project_bbox(builder.mesh_points[label], k,
+                                 item["gt_rotations"][0],
+                                 item["gt_translations"][0])
+
+    def crop():
+        c = pipeline.crop_resize_pad(item["image"], bbox, k,
+                                     builder.cfg.data.image_scale, 1.2,
+                                     mask=item["gt_masks"][0])
+        return c.patch, c.mask_patch
+
+    def crop_np():
+        with mock.patch.object(pipeline, "resize_linear",
+                               cvops._resize_linear_np):
+            return crop()
+
+    patch = crop()[0]
+    hsv = cvops.rgb_to_hsv(patch)
+    bg = imread(builder._bg_paths[0]) if builder._bg_paths else item["image"]
+    draws = (rng.uniform(-0.2, 0.2) * 180, 1.0 + rng.uniform(-0.5, 0.5),
+             1.0 + rng.uniform(-0.5, 0.5))
+    size = patch.shape[:2]
+    entries = {
+        "train_crop": (crop, crop_np),
+        "resize_background": (lambda: cvops.resize_linear(bg, size),
+                              lambda: cvops._resize_linear_np(bg, size)),
+        **{f"gaussian_blur_{n}": (
+            lambda n=n: cvops.gaussian_blur(patch, n),
+            lambda n=n: cvops._gaussian_blur_np(patch, n)) for n in (3, 5)},
+        **{name: (lambda name=name, x=x: getattr(cvops, name)(x),
+                  lambda name=name, x=x: getattr(cvops, f"_{name}_np")(x))
+           for name, x in (("rgb_to_gray", patch), ("rgb_to_hsv", patch),
+                           ("hsv_to_rgb", hsv))},
+        "hsv_jitter": (lambda: cvops.hsv_jitter(patch, *draws),
+                       lambda: cvops._hsv_jitter_np(patch, *draws))}
+    with open(png, "rb") as f:
+        out = {"png_unfilter": png_unfilter_held(png, f.read())}
+    out.update({name: held_to_witness(f"{what} {name}", *fns)
+                for name, fns in entries.items()})
+    out["crop_shape"] = list(patch.shape)
+    return out
 
 
 def train_bop_runs(root: str, base: list, patches: list, timed, losses):
@@ -2893,13 +3109,16 @@ def phase_train_bop(train_ms: float, smi: str) -> tuple:
             loader = {"filter0": measure_loader(
                 builder, *LOADER_BATCHES["filter0"])}
             paeth = SuperviseTrainDataset(
-                paeth_copy(f"{root}/train", f"{root}/paeth"),
+                paeth_copy(f"{root}/train/train_real", f"{root}/paeth"),
                 f"{root}/train/image_lists/train_real.txt",
                 class_names=builder.dataset.class_names,
                 min_visib_fract=builder.dataset.min_visib_fract)
             loader["paeth"] = measure_loader(
                 TrainBatchBuilder(paeth, builder.cfg, builder.mesh_points,
                                   builder.diameters), *LOADER_BATCHES["paeth"])
+            rgb = f"{root}/paeth/000001/rgb"
+            host = train_host_held("train_bop", builder,
+                                   f"{rgb}/{sorted(os.listdir(rgb))[0]}")
         finally:
             os.chdir(cwd)
     check(out["scene"].cfg.data.batch_size == 16
@@ -2920,7 +3139,8 @@ def phase_train_bop(train_ms: float, smi: str) -> tuple:
     step_in_fit_ms = [1e3 * (t1 - t0) for t0, t1, _ in steps]
     loader_batch_ms = 1e3 * loader["filter0"]["batch_s_prefetch"]
     bare = statistics.median(step_in_fit_ms)
-    emit(phase="train_bop", card=smi, recipe="scflow_ycbv_real",
+    emit(phase="train_bop", card=smi, host_cpu=host_cpu(),
+         recipe="scflow_ycbv_real",
          batch=TRAIN_BATCH, image=list(SIZE), classes=NUM_CLASS, iters=ITERS,
          dtype="float32", frame=list(BOP_FRAME), train_images=train["images"],
          train_objects=train["objects"], test_images=test["images"],
@@ -2942,7 +3162,7 @@ def phase_train_bop(train_ms: float, smi: str) -> tuple:
                 "steps": TRAIN_BOP_SCENE_STEPS, "seconds": out["scene_s"],
                 "step_ms": [1e3 * (t1 - t0) for t0, t1, _ in scene_steps],
                 "losses": out["scene_losses"].tolist()},
-         cpu_parity=parity, loader=loader,
+         cpu_parity=parity, loader=loader, host_passes=host,
          pace=("loader" if loader_batch_ms > bare else "step"),
          loader_batch_ms_prefetch=loader_batch_ms,
          train_step_in_fit_ms_median=bare,
@@ -2959,12 +3179,17 @@ def host_cpu() -> str:
     import platform
     import shutil
 
-    name = "unknown"
+    name, ids = "unknown", {}
     with open("/proc/cpuinfo") as f:
         for line in f:
-            if line.startswith("model name"):
-                name = line.split(":", 1)[1].strip()
-                break
+            key, _, value = (t.strip() for t in line.partition(":"))
+            if key in ("model name", "cpu family", "model"):
+                ids.setdefault(key, value)
+            if not key:
+                break                       # the first CPU's block
+    name = ids.get("model name", name)
+    if name == "unknown" and "model" in ids:    # a hidden model name
+        name = f"unknown (family {ids.get('cpu family')}, model {ids['model']})"
     if name == "unknown" and shutil.which("lscpu"):
         out = subprocess.run(["lscpu"], capture_output=True, text=True,
                              timeout=60).stdout
@@ -3074,8 +3299,9 @@ def pbr_layout(root: str, fixtures: str) -> dict:
 
 
 def phase_train_pbr(train_ms: float, smi: str) -> tuple:
-    """JPEG without cv2, and the PBR recipe from JPEG trees: the host
-    library's build, every fixture against cv2's digests, decode times;
+    """JPEG without cv2, and the PBR recipe from JPEG trees (the host
+    library built by ``eval_bop``): every fixture against cv2's digests,
+    decode times;
     ``scflow_torch.train.main --config scflow_ycbv_mixpbr`` (batch 16,
     256², 8 iterations, f32; backgrounds and object-paste occlusion at the
     recipe's p 0.3) for 4 steps over a JPEG train_pbr and a PNG
@@ -3089,19 +3315,12 @@ def phase_train_pbr(train_ms: float, smi: str) -> tuple:
 
     import scflow_torch.train as cli
     import scflow_torch.training.trainer as trainer_mod
-    from scflow_torch.data import _build as host_build
 
     t_phase = time.perf_counter()
-    t0 = time.perf_counter()
-    host_build.library()
-    build = dict(seconds=time.perf_counter() - t0,
-                 cached=host_build.build_info["cached"],
-                 library=host_build.build_info["path"])
     fixtures = os.path.abspath(JPEG_FIXTURES)
     t0 = time.perf_counter()
     decode = check_jpeg_fixtures(fixtures)
-    seconds = dict(host_build=build["seconds"],
-                   fixtures=time.perf_counter() - t0)
+    seconds = dict(fixtures=time.perf_counter() - t0)
 
     timed, builders, losses = Timed(), [], []
 
@@ -3148,6 +3367,11 @@ def phase_train_pbr(train_ms: float, smi: str) -> tuple:
             t0 = time.perf_counter()
             loader = measure_loader(builder, *PBR_LOADER_BATCHES)
             seconds["loader"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            rgb = f"{root}/real/train_real/000001/rgb"
+            host = train_host_held("train_pbr", builder,
+                                   f"{rgb}/{sorted(os.listdir(rgb))[0]}")
+            seconds["host_passes"] = time.perf_counter() - t0
         finally:
             os.chdir(cwd)
     steps = timed.records["train"]
@@ -3171,7 +3395,7 @@ def phase_train_pbr(train_ms: float, smi: str) -> tuple:
     emit(phase="train_pbr", card=smi, host_cpu=host_cpu(),
          recipe="scflow_ycbv_mixpbr", batch=TRAIN_BATCH, image=list(SIZE),
          classes=NUM_CLASS, iters=ITERS, dtype="float32",
-         host_library_build=build, fixtures=decode,
+         fixtures=decode,
          frame=list(BOP_FRAME), pbr_images=trees["pbr"]["images"],
          pbr_objects=trees["pbr"]["objects"],
          real_images=trees["real"]["images"],
@@ -3187,7 +3411,8 @@ def phase_train_pbr(train_ms: float, smi: str) -> tuple:
          launches_per_fit_step=dict(zip(
              ("rasterize_tiles", "instance_norm_fwd", "instance_norm_bwd"),
              steps[0][2])),
-         cpu_parity=parity, loader=loader, cv2_or_pil_imported=False,
+         cpu_parity=parity, loader=loader, host_passes=host,
+         cv2_or_pil_imported=False,
          seconds=dict(seconds, tree=write_s, fit=fit_s),
          phase_seconds=time.perf_counter() - t_phase)
     return launches
@@ -4374,7 +4599,7 @@ def main() -> int:
     train_bf16 = run_phase("train_bf16", phase_train_bf16, bank)
     raft = run_phase("raft", phase_raft, renderer, batch)
     raft_train = run_phase("raft_train", phase_raft_train, bank)
-    *eval_bop, eval_results = run_phase("eval_bop", phase_eval_bop)
+    *eval_bop, eval_results = run_phase("eval_bop", phase_eval_bop, smi)
     *pose_graph, pg_first = run_phase("pose_graph", phase_pose_graph,
                                       eval_results)
     train_bop = run_phase("train_bop", phase_train_bop, train_ms, smi)

@@ -1,13 +1,16 @@
 """Build the host (CPU) C++ library of the data path, at first use.
 
-``csrc/jpeg_decode.cpp`` has a plain C interface and needs nothing beyond
-the C++ standard library. It is compiled by ``$CXX`` (else ``c++``, else
-``g++``) into ``scflow_torch/_build/libscflow_host-<hash>.so`` and loaded
-with ``ctypes.CDLL``, which releases the GIL for each call, so threads
-decode in parallel. The hash covers the sources, the compiler and the
-flags: an edited source builds a new library, an existing one is reused.
-It is a library apart from the CUDA kernels', so a machine without
-``nvcc`` builds it. A failed build raises with the compiler's log.
+The sources in ``csrc/`` (the JPEG decoder, PNG unfiltering, the eval
+crop, the train crop's and augmentations' pixel passes) have plain C
+interfaces and need nothing beyond the C++ standard library. They are
+compiled by ``$CXX`` (else ``c++``, else ``g++``) into
+``scflow_torch/_build/libscflow_host-<hash>.so`` and loaded with
+``ctypes.CDLL``, which releases the GIL for each call, so threads decode,
+crop and augment in parallel. The hash covers the sources, the compiler
+and the flags: an edited source builds a new library, an existing one is
+reused. It is a library apart from the CUDA kernels', so a machine
+without ``nvcc`` builds it. A failed build raises with the compiler's
+log.
 """
 from __future__ import annotations
 
@@ -23,9 +26,11 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("jpeg_decode.cpp",)
-# integer code only: -O2 with any -march gives the same bits; no -ffast-math
-CXX_FLAGS = ("-std=c++17", "-O2", "-fPIC", "-shared")
+SOURCES = ("jpeg_decode.cpp", "png_unfilter.cpp", "crop.cpp", "cvops.cpp")
+# The float code (crop, cvops) writes std::fma where its numpy witness
+# fuses a multiply-add; -ffp-contract=off keeps the compiler from fusing
+# any other, so the bits do not depend on -march. No -ffast-math.
+CXX_FLAGS = ("-std=c++17", "-O3", "-ffp-contract=off", "-fPIC", "-shared")
 
 _lib: ctypes.CDLL | None = None
 _lock = threading.Lock()
@@ -86,5 +91,28 @@ def library() -> ctypes.CDLL:
                 ctypes.c_size_t]
             for fn in (lib.scflow_jpeg_info, lib.scflow_jpeg_decode):
                 fn.restype = ctypes.c_int
+            _declare(lib)
             _lib = lib
     return _lib
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    """ctypes signatures of the PNG, crop and cvops entries."""
+    ptr, i64, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
+    entries = {
+        "scflow_png_unfilter": (ctypes.c_int, [ptr, i64, i64, ctypes.c_int,
+                                               ptr, ctypes.POINTER(i64)]),
+        "scflow_crop_resize_pad": (None, [ptr, i64, i64, ptr, ctypes.c_int,
+                                          ctypes.c_int, f32, ptr, ptr, ptr,
+                                          ptr]),
+        "scflow_resize_linear": (None, [ptr, i64, i64, i64, ptr, i64, i64]),
+        "scflow_gaussian_blur": (ctypes.c_int, [ptr, i64, i64, i64,
+                                                ctypes.c_int, ptr]),
+        "scflow_rgb_to_gray": (None, [ptr, i64, ptr]),
+        "scflow_rgb_to_hsv": (None, [ptr, i64, ptr]),
+        "scflow_hsv_to_rgb": (None, [ptr, i64, i64, ptr]),
+        "scflow_hsv_jitter": (None, [ptr, i64, i64, f32, f32, f32, ptr]),
+    }
+    for name, (restype, argtypes) in entries.items():
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = restype, argtypes

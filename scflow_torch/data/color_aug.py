@@ -13,21 +13,18 @@ from __future__ import annotations
 
 import numpy as np
 
-from .cvops import (gaussian_blur, hsv_to_rgb, resize_linear, rgb_to_gray,
-                    rgb_to_hsv, rotation_matrix_2d, warp_affine)
+from .cvops import (gaussian_blur, hsv_jitter, resize_linear, rgb_to_gray,
+                    rotation_matrix_2d, warp_affine)
 
 
 def random_hsv(rng: np.random.Generator, img: np.ndarray, h_ratio=0.2,
                s_ratio=0.5, v_ratio=0.5) -> np.ndarray:
-    """HSV jitter (reference RandomHSV, color_transform.py:77-101)."""
-    hsv = rgb_to_hsv(img).astype(np.float32)
+    """HSV jitter (reference RandomHSV, color_transform.py:77-101): the
+    three draws here, the pixel pass fused in :func:`~.cvops.hsv_jitter`."""
     h = rng.uniform(-h_ratio, h_ratio) * 180
     s = 1.0 + rng.uniform(-s_ratio, s_ratio)
     v = 1.0 + rng.uniform(-v_ratio, v_ratio)
-    hsv[..., 0] = (hsv[..., 0] + h) % 180
-    hsv[..., 1] = np.clip(hsv[..., 1] * s, 0, 255)
-    hsv[..., 2] = np.clip(hsv[..., 2] * v, 0, 255)
-    return hsv_to_rgb(hsv.astype(np.uint8))
+    return hsv_jitter(img, h, s, v)
 
 
 def random_noise(rng: np.random.Generator, img: np.ndarray,

@@ -1,4 +1,4 @@
-"""Numpy forms of the OpenCV calls that the training-data path makes.
+"""The OpenCV calls that the training-data path makes, without OpenCV.
 
 The JAX package's crop and color augmentations call cv2
 (``scflow_tpu/data/pipeline.py:162-173``, ``data/color_aug.py``); the
@@ -8,13 +8,22 @@ float32 arithmetic for uint8 images, so that the port's crops and
 augmentations match the JAX package's pixel for pixel, and draw the same
 random numbers (a mask pixel that flips would change how many values an
 occluder draws). The tests hold each one to cv2.
+
+The resize, blur and color conversions, and :func:`hsv_jitter` (RandomHSV's
+pixel pass), run in the host library's C++ (``csrc/cvops.cpp``, built by
+``_build``; ctypes releases the GIL). Their numpy forms, the ``_np``
+functions below, are the witnesses the tests hold the C++ to, bit for bit;
+only tests and chip_smoke's checks call them. ``warp_affine`` is numpy.
 """
 from __future__ import annotations
 
 import numpy as np
 
+from ._build import library
+
 _RESIZE_BITS = 11                 # INTER_RESIZE_COEF_BITS
 _HSV_SHIFT = 12
+_HSV_STEP = 32                    # pixels a vector step of cv2's HSV→RGB
 
 
 def _channels(img: np.ndarray) -> np.ndarray:
@@ -42,7 +51,7 @@ def _resize_taps(n_out: int, n_in: int, clamp_weight: bool):
     return (np.clip(i0, 0, n_in - 1), np.clip(i0 + 1, 0, n_in - 1), w0, w1)
 
 
-def resize_linear(img: np.ndarray, out_hw) -> np.ndarray:
+def _resize_linear_np(img: np.ndarray, out_hw) -> np.ndarray:
     """``cv2.resize(img, (w, h), interpolation=cv2.INTER_LINEAR)`` for a
     uint8 image (H, W) or (H, W, C): 11-bit weights, an integer
     horizontal pass, and the vectorised vertical pass
@@ -65,7 +74,7 @@ def resize_linear(img: np.ndarray, out_hw) -> np.ndarray:
 _BLUR_TAPS = {3: (1, 2, 1), 5: (1, 4, 6, 4, 1)}
 
 
-def gaussian_blur(img: np.ndarray, k: int) -> np.ndarray:
+def _gaussian_blur_np(img: np.ndarray, k: int) -> np.ndarray:
     """``cv2.GaussianBlur(img, (k, k), 0)`` for a uint8 image, k ∈ {3, 5}:
     cv2's bit-exact integer kernels (1, 2, 1) and (1, 4, 6, 4, 1) in both
     directions, the border reflected without repeating the edge
@@ -81,7 +90,7 @@ def gaussian_blur(img: np.ndarray, k: int) -> np.ndarray:
     return ((acc + total // 2) // total).astype(np.uint8).reshape(img.shape)
 
 
-def rgb_to_gray(img: np.ndarray) -> np.ndarray:
+def _rgb_to_gray_np(img: np.ndarray) -> np.ndarray:
     """``cv2.cvtColor(img, cv2.COLOR_RGB2GRAY)`` for uint8 RGB: the 15-bit
     weights of its vectorised path, rounded half up."""
     px = img.astype(np.int64)
@@ -101,7 +110,7 @@ def _hsv_tables():
 _SDIV, _HDIV180 = _hsv_tables()
 
 
-def rgb_to_hsv(img: np.ndarray) -> np.ndarray:
+def _rgb_to_hsv_np(img: np.ndarray) -> np.ndarray:
     """``cv2.cvtColor(img, cv2.COLOR_RGB2HSV)`` for uint8 RGB: H in
     [0, 180], cv2's integer division tables with 12 fractional bits."""
     px = img.astype(np.int64)
@@ -123,11 +132,13 @@ def _fma(a, b, c) -> np.ndarray:
             + np.asarray(c, np.float64)).astype(np.float32)
 
 
-def hsv_to_rgb(img: np.ndarray) -> np.ndarray:
+def _hsv_to_rgb_np(img: np.ndarray) -> np.ndarray:
     """``cv2.cvtColor(img, cv2.COLOR_HSV2RGB)`` for uint8 HSV (H in
-    [0, 180)): cv2's vectorised float32 sector formula, whose two
-    ``1 − s·x`` terms are fused multiply-adds, scaled by 255 and
-    truncated."""
+    [0, 180)): cv2's float32 sector formula, whose two ``1 − s·x`` terms
+    are fused multiply-adds, scaled by 255. cv2 converts each row (the
+    second last axis) ``_HSV_STEP`` pixels a vector step, which truncates,
+    and the row's last ``width % _HSV_STEP`` pixels in scalar code, which
+    rounds half to even."""
     f32 = np.float32
     h = img[..., 0].astype(f32) * f32(6.0 / 180.0)
     s = img[..., 1].astype(f32) * f32(1.0 / 255.0)
@@ -141,7 +152,108 @@ def hsv_to_rgb(img: np.ndarray) -> np.ndarray:
     order = np.array([[0, 3, 1], [2, 0, 1], [1, 0, 3], [1, 2, 0], [3, 1, 0],
                       [0, 1, 2]])
     rgb = np.take_along_axis(tab, order[sector.astype(np.int64) % 6], axis=-1)
-    return np.clip(np.trunc(rgb * f32(255.0)), 0, 255).astype(np.uint8)
+    width = _row_width(img)
+    x = (rgb * f32(255.0)).reshape(-1, width, 3)
+    tail = np.arange(width) >= width // _HSV_STEP * _HSV_STEP
+    x = np.where(tail[:, None], np.rint(x), np.trunc(x))
+    return np.clip(x, 0, 255).astype(np.uint8).reshape(img.shape)
+
+
+def _row_width(img: np.ndarray) -> int:
+    """Pixels a row of (..., W, 3) pixels (1 for a single pixel)."""
+    return img.shape[-2] if img.ndim > 1 and img.shape[-2] else 1
+
+
+def _hsv_jitter_np(img: np.ndarray, dh: float, ds: float,
+                   dv: float) -> np.ndarray:
+    """RandomHSV's pixel pass (``scflow_tpu/data/color_aug.py:20-29``)
+    given its draws: HSV in float32; H ← (H + dh) % 180, numpy's float32
+    remainder (the sign of the divisor; a tiny negative sum rounds up to
+    180); S, V scaled and clipped to [0, 255]; truncated to uint8; RGB."""
+    f32 = np.float32
+    hsv = _rgb_to_hsv_np(img).astype(f32)
+    hsv[..., 0] = (hsv[..., 0] + f32(dh)) % f32(180)
+    hsv[..., 1] = np.clip(hsv[..., 1] * f32(ds), 0, 255)
+    hsv[..., 2] = np.clip(hsv[..., 2] * f32(dv), 0, 255)
+    return _hsv_to_rgb_np(hsv.astype(np.uint8))
+
+
+# -- the C++ entries (csrc/cvops.cpp) --------------------------------------
+
+def _u8(img: np.ndarray, what: str, rgb: bool = False) -> np.ndarray:
+    img = np.ascontiguousarray(img)
+    if img.dtype != np.uint8:
+        raise ValueError(f"{what}: uint8 image expected, got {img.dtype}")
+    if rgb and (img.ndim < 1 or img.shape[-1] != 3):
+        raise ValueError(f"{what}: (..., 3) pixels expected, got "
+                         f"{img.shape}")
+    if not rgb and (img.ndim not in (2, 3) or 0 in img.shape):
+        raise ValueError(f"{what}: (H, W) or (H, W, C) image expected, got "
+                         f"{img.shape}")
+    return img
+
+
+def _plane(img: np.ndarray) -> tuple[int, int, int]:
+    return img.shape[0], img.shape[1], (img.shape[2] if img.ndim == 3 else 1)
+
+
+def resize_linear(img: np.ndarray, out_hw) -> np.ndarray:
+    """``cv2.resize(img, (w, h), interpolation=cv2.INTER_LINEAR)`` for a
+    uint8 image (H, W) or (H, W, C); see :func:`_resize_linear_np`."""
+    oh, ow = (int(v) for v in out_hw)
+    img = _u8(img, "resize_linear")
+    if oh < 1 or ow < 1:
+        raise ValueError(f"resize_linear: output size {(oh, ow)}")
+    out = np.empty((oh, ow) + img.shape[2:], np.uint8)
+    library().scflow_resize_linear(img.ctypes.data, *_plane(img),
+                                   out.ctypes.data, oh, ow)
+    return out
+
+
+def gaussian_blur(img: np.ndarray, k: int) -> np.ndarray:
+    """``cv2.GaussianBlur(img, (k, k), 0)`` for a uint8 image, k ∈ {3, 5};
+    see :func:`_gaussian_blur_np`."""
+    img = _u8(img, "gaussian_blur")
+    out = np.empty_like(img)
+    if library().scflow_gaussian_blur(img.ctypes.data, *_plane(img), int(k),
+                                      out.ctypes.data):
+        raise ValueError(f"gaussian_blur: kernel size {k} (3 or 5)")
+    return out
+
+
+def _pixels(entry: str, img: np.ndarray, *args) -> np.ndarray:
+    """One of the per-pixel entries on (..., 3) uint8 pixels."""
+    img = _u8(img, entry, rgb=True)
+    out = np.empty(img.shape[:-1] if entry == "rgb_to_gray" else img.shape,
+                   np.uint8)
+    getattr(library(), f"scflow_{entry}")(img.ctypes.data, img.size // 3,
+                                          *args, out.ctypes.data)
+    return out
+
+
+def rgb_to_gray(img: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(img, cv2.COLOR_RGB2GRAY)`` for uint8 RGB; see
+    :func:`_rgb_to_gray_np`."""
+    return _pixels("rgb_to_gray", img)
+
+
+def rgb_to_hsv(img: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(img, cv2.COLOR_RGB2HSV)`` for uint8 RGB (H in
+    [0, 180]); see :func:`_rgb_to_hsv_np`."""
+    return _pixels("rgb_to_hsv", img)
+
+
+def hsv_to_rgb(img: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(img, cv2.COLOR_HSV2RGB)`` for uint8 HSV; see
+    :func:`_hsv_to_rgb_np`."""
+    return _pixels("hsv_to_rgb", img, _row_width(img))
+
+
+def hsv_jitter(img: np.ndarray, dh: float, ds: float, dv: float) -> np.ndarray:
+    """RandomHSV's pixel pass on uint8 RGB, fused: RGB → HSV, the hue shift
+    ``dh`` and the scalings ``ds``, ``dv`` (each taken as float32), HSV →
+    RGB; see :func:`_hsv_jitter_np`."""
+    return _pixels("hsv_jitter", img, _row_width(img), dh, ds, dv)
 
 
 def rotation_matrix_2d(center, angle: float, scale: float) -> np.ndarray:

@@ -9,9 +9,11 @@ the file's signature, not its extension:
 - JPEG (``FF D8``) goes to :mod:`.jpeg` (a C++ decoder built at first use,
   bit-equal to cv2's libjpeg-turbo). A gray JPEG read in color repeats Y
   into three channels, a color JPEG read as gray is its Y plane.
-- PNG is decoded with ``zlib`` and ``struct`` alone (the inverse of
-  ``utils.tb_writer.encode_png``): 8-bit gray, gray+alpha, RGB and RGBA,
-  any filter type, any number of IDAT chunks. A color read drops alpha
+- PNG is parsed with ``struct`` and inflated with ``zlib`` (the inverse
+  of ``utils.tb_writer.encode_png``); the host library's C++ undoes the
+  rows' filters (``csrc/png_unfilter.cpp``, one call per image, the GIL
+  released). 8-bit gray, gray+alpha, RGB and RGBA, any filter type, any
+  number of IDAT chunks. A color read drops alpha
   and repeats gray into three channels, as cv2's ``IMREAD_COLOR`` does. A
   gray read of a color PNG drops alpha and applies libpng's rgb-to-gray,
   which cv2 uses: ``(9797 R + 19234 G + 3737 B) >> 15``, truncated.
@@ -22,12 +24,14 @@ raises the same error from a file's header alone.
 """
 from __future__ import annotations
 
+import ctypes
 import os
 import struct
 import zlib
 
 import numpy as np
 
+from ._build import library
 from .jpeg import HeaderIncomplete, decode_jpeg, jpeg_info
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
@@ -110,6 +114,14 @@ def _check_header(header: tuple, path: str) -> None:
 
 def decode_png(data: bytes, path: str = "<bytes>") -> tuple[np.ndarray, int]:
     """Decode PNG bytes → ((H, W, C) uint8 samples, PNG color type)."""
+    raw, height, width, bpp, color = _inflate_png(data, path)
+    out = _unfilter_rows(raw, height, width * bpp, bpp, path)
+    return out.reshape(height, width, bpp), color
+
+
+def _inflate_png(data: bytes, path: str) -> tuple:
+    """(inflated rows (uint8, each a filter byte and its samples), height,
+    width, bytes per pixel, color type) of a PNG file's bytes."""
     _check_signature(data, path)
     pos, header, idat = 8, None, []
     while pos + 8 <= len(data):
@@ -132,13 +144,34 @@ def decode_png(data: bytes, path: str = "<bytes>") -> tuple[np.ndarray, int]:
     if raw.size != height * (stride + 1):
         raise ValueError(f"{path}: PNG data of {raw.size} bytes for "
                          f"{height} rows of {stride}")
+    return raw, height, width, bpp, color
+
+
+def _unfilter_rows(raw: np.ndarray, height: int, stride: int, bpp: int,
+                   path: str) -> np.ndarray:
+    """(height, stride) samples of the inflated rows ``raw``, every row's
+    filter undone by the host library (``csrc/png_unfilter.cpp``)."""
+    out = np.empty((height, stride), np.uint8)
+    bad_row = ctypes.c_int64()
+    kind = library().scflow_png_unfilter(raw.ctypes.data, height, stride, bpp,
+                                         out.ctypes.data,
+                                         ctypes.byref(bad_row))
+    if kind:
+        raise ValueError(f"{path}: unknown PNG filter type {kind}")
+    return out
+
+
+def _unfilter_rows_np(raw: np.ndarray, height: int, stride: int, bpp: int,
+                      path: str) -> np.ndarray:
+    """:func:`_unfilter_rows` row by row in numpy and Python
+    (:func:`_unfilter`): the witness of the C++ pass."""
     rows = raw.reshape(height, stride + 1)
     out = np.empty((height, stride), np.uint8)
     prev = np.zeros(stride, np.uint8)
     for y in range(height):
         out[y] = _unfilter(int(rows[y, 0]), rows[y, 1:], prev, bpp, path)
         prev = out[y]
-    return out.reshape(height, width, bpp), color
+    return out
 
 
 def _unfilter(kind: int, line: np.ndarray, prev: np.ndarray, bpp: int,

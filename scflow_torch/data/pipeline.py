@@ -20,6 +20,9 @@ Two crops, one per builder, as the JAX package runs them:
   the JAX ``TestBatchBuilder`` takes where cv2 is absent). Its patch
   offset is the C++'s integer ``out/2 - rh/2``, so the two crops can
   place a patch one pixel apart when ``rh`` is odd, as in the reference.
+  It runs in the host library's C++ (``csrc/crop.cpp``, one call per
+  image); :func:`_crop_resize_pad_batch_np` is its numpy witness, which
+  only tests and chip_smoke's checks call.
 """
 from __future__ import annotations
 
@@ -30,7 +33,12 @@ import torch
 
 from ..geometry.pnp import epnp
 from ..training.config import JitterConfig
+from ._build import library
 from .cvops import resize_linear
+
+# boxes of the eval crop: corners below 2^24 in magnitude, where float32
+# holds every integer (and the C++ crop's arithmetic is the witness's)
+_MAX_CORNER = float(1 << 24)
 
 
 def _euler_zyx_matrix(angles_deg):
@@ -242,8 +250,44 @@ def crop_resize_pad_batch(images: list[np.ndarray], boxes: np.ndarray,
 
     Returns (patches (N, S, S, 3) f32, transforms (N, 3, 3) f32), where
     transform = pad ∘ resize ∘ crop maps image pixels to patch pixels. A
-    box with no area gives a pad-only patch and the identity.
+    box with no area gives a pad-only patch and the identity. One C++ call
+    crops the boxes of each run of the same image object in ``images``.
     """
+    boxes = np.ascontiguousarray(boxes, np.float32).reshape(-1, 4)
+    if len(boxes) != len(images):
+        raise ValueError(f"{len(images)} images for {len(boxes)} boxes")
+    if not (np.abs(boxes) < _MAX_CORNER).all():
+        raise ValueError(f"crop boxes must be finite and within ±2^24: "
+                         f"{boxes[~(np.abs(boxes) < _MAX_CORNER).all(1)]}")
+    mean = np.ascontiguousarray(np.broadcast_to(np.float32(mean), 3))
+    std = np.ascontiguousarray(np.broadcast_to(np.float32(std), 3))
+    n = len(images)
+    out = np.empty((n, out_size, out_size, 3), np.float32)
+    transforms = np.empty((n, 3, 3), np.float32)
+    lib, start = library(), 0
+    while start < n:
+        img = images[start]
+        end = start + 1
+        while end < n and images[end] is img:
+            end += 1
+        frame = np.ascontiguousarray(img)
+        if frame.dtype != np.uint8 or frame.ndim != 3 or frame.shape[2] != 3:
+            raise ValueError(f"crop: (H, W, 3) uint8 image expected, got "
+                             f"{frame.shape} {frame.dtype}")
+        lib.scflow_crop_resize_pad(
+            frame.ctypes.data, frame.shape[0], frame.shape[1],
+            boxes[start:].ctypes.data, end - start, out_size, pad_val,
+            mean.ctypes.data, std.ctypes.data, out[start].ctypes.data,
+            transforms[start].ctypes.data)
+        start = end
+    return out, transforms
+
+
+def _crop_resize_pad_batch_np(images: list[np.ndarray], boxes: np.ndarray,
+                              out_size: int, pad_val: float = 128.0,
+                              mean=(0.0, 0.0, 0.0),
+                              std=(255.0, 255.0, 255.0)):
+    """:func:`crop_resize_pad_batch` in numpy: the witness of the C++."""
     boxes = np.asarray(boxes, np.float32)
     mean = np.asarray(mean, np.float32)
     std = np.asarray(std, np.float32)
