@@ -38,6 +38,7 @@ from ..geometry.flow import flow_from_pose_and_points
 from ..geometry.projection import (depth_to_correspondences, pixel_grid,
                                    project_points)
 from ..geometry.se3 import compose_delta_pose
+from ..utils.profiling import span
 from .corr import corr_lookup, correlation_pyramid
 from .gru import ConvGRU
 from .heads import FlowMaskEmbed, MotionEncoder, PoseHead, XHead
@@ -194,8 +195,9 @@ class SCFlowDecoder(nn.Module):
 
         seq = [[] for _ in dataclasses.fields(SCFlowOutputs)]
         for _ in range(num_iters):
-            carry, outs = step(*carry, pyramid, cxt_feat, label, k, geom,
-                               scale, invalid_flow_num, lowres)
+            with span("decoder.iter"):
+                carry, outs = step(*carry, pyramid, cxt_feat, label, k, geom,
+                                   scale, invalid_flow_num, lowres)
             for acc, o in zip(seq, outs):
                 acc.append(o)
         if lowres:
@@ -271,24 +273,26 @@ class RAFTDecoder(nn.Module):
                 if init_flow is None else _nchw(init_flow))
         flows, occs = [], []
         for _ in range(num_iters):
-            flow = flow.detach()
-            corr = corr_lookup(pyramid, flow, self.radius)
-            motion = self.encoder(corr, flow)
-            h_feat = self.gru(h_feat, torch.cat([cxt_feat, motion], dim=1))
-            flow = flow + self.flow_pred(h_feat)
-            up_weights = None
-            if self.mask_pred is not None:
-                up_weights = 0.25 * self.mask_pred(h_feat)
-                flows.append(_nhwc(convex_upsample(flow, up_weights, s)))
-            else:
-                flows.append(_nhwc(upsample_flow(flow, s)))
-            if self.occlusion_pred is None:
-                occs.append(flows[-1].new_zeros(n, hf * s, wf * s, 1))
-                continue
-            occ = torch.sigmoid(self.occlusion_pred(h_feat))
-            if up_weights is not None:
-                occs.append(_nhwc(convex_upsample(occ, up_weights, s, 1.0)))
-            else:
-                occs.append(_nhwc(resize_bilinear_align_corners(
-                    occ, (hf * s, wf * s))))
+            with span("decoder.iter"):
+                flow = flow.detach()
+                corr = corr_lookup(pyramid, flow, self.radius)
+                motion = self.encoder(corr, flow)
+                h_feat = self.gru(h_feat, torch.cat([cxt_feat, motion], dim=1))
+                flow = flow + self.flow_pred(h_feat)
+                up_weights = None
+                if self.mask_pred is not None:
+                    up_weights = 0.25 * self.mask_pred(h_feat)
+                    flows.append(_nhwc(convex_upsample(flow, up_weights, s)))
+                else:
+                    flows.append(_nhwc(upsample_flow(flow, s)))
+                if self.occlusion_pred is None:
+                    occs.append(flows[-1].new_zeros(n, hf * s, wf * s, 1))
+                    continue
+                occ = torch.sigmoid(self.occlusion_pred(h_feat))
+                if up_weights is not None:
+                    occs.append(_nhwc(convex_upsample(occ, up_weights, s,
+                                                      1.0)))
+                else:
+                    occs.append(_nhwc(resize_bilinear_align_corners(
+                        occ, (hf * s, wf * s))))
         return torch.stack(flows), torch.stack(occs)

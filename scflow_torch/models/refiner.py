@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..utils.profiling import span
 from .decoder import RAFTDecoder, SCFlowDecoder, SCFlowOutputs
 from .encoder import RAFTEncoder, encoder_stride
 
@@ -85,11 +86,13 @@ class SCFlowRefiner(nn.Module):
         (N, 3), depth (N, H, W), k (N, 3, 3), label (N,), optional
         sample_valid (N,). Returns the decoder's (T, N, ...) sequences in
         the JAX layout."""
-        feats = self.extract_feat(_nchw(render_images), _nchw(real_images),
-                                  sample_valid)
-        return self.decoder(*feats, ref_rotation, ref_translation, depth, k,
-                            label, invalid_flow_num=0.0, iters=iters,
-                            lowres=lowres)
+        with span("encode"):
+            feats = self.extract_feat(_nchw(render_images),
+                                      _nchw(real_images), sample_valid)
+        with span("decoder"):
+            return self.decoder(*feats, ref_rotation, ref_translation, depth,
+                                k, label, invalid_flow_num=0.0, iters=iters,
+                                lowres=lowres)
 
 
 class RAFTRefiner(nn.Module):
@@ -134,22 +137,25 @@ class RAFTRefiner(nn.Module):
         if render_images.dim() == 3 and real_images.dim() == 3:
             raise ValueError("at most one side may be unbatched "
                              "(multiview broadcast)")
-        if render_images.dim() == 3:
-            n = real_images.shape[0]
-            one = _nchw(render_images[None])
-            feat_render = self.render_encoder(one).expand(n, -1, -1, -1)
-            cxt = self.context(one).expand(n, -1, -1, -1)
-        else:
-            one = _nchw(render_images)
-            feat_render = self.render_encoder(one)
-            cxt = self.context(one, sample_valid)
-        if real_images.dim() == 3:
-            n = render_images.shape[0]
-            feat_real = self.real_encoder(_nchw(real_images[None])).expand(
-                n, -1, -1, -1)
-        else:
-            feat_real = self.real_encoder(_nchw(real_images))
-        h_feat, cxt_feat = torch.split(
-            cxt, [self.h_channels, cxt.shape[1] - self.h_channels], dim=1)
-        return self.decoder(feat_render, feat_real, torch.tanh(h_feat),
-                            torch.relu(cxt_feat), iters=iters)
+        with span("encode"):
+            if render_images.dim() == 3:
+                n = real_images.shape[0]
+                one = _nchw(render_images[None])
+                feat_render = self.render_encoder(one).expand(n, -1, -1, -1)
+                cxt = self.context(one).expand(n, -1, -1, -1)
+            else:
+                one = _nchw(render_images)
+                feat_render = self.render_encoder(one)
+                cxt = self.context(one, sample_valid)
+            if real_images.dim() == 3:
+                n = render_images.shape[0]
+                feat_real = self.real_encoder(
+                    _nchw(real_images[None])).expand(n, -1, -1, -1)
+            else:
+                feat_real = self.real_encoder(_nchw(real_images))
+            h_feat, cxt_feat = torch.split(
+                cxt, [self.h_channels, cxt.shape[1] - self.h_channels], dim=1)
+            h_feat, cxt_feat = torch.tanh(h_feat), torch.relu(cxt_feat)
+        with span("decoder"):
+            return self.decoder(feat_render, feat_real, h_feat, cxt_feat,
+                                iters=iters)

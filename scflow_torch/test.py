@@ -7,6 +7,7 @@ with the exact ``ADDMetric``, and optionally write BOP-format results
   python -m scflow_torch.test --data-root DATA/test \\
       --ref-annots-root DATA/init_poses --image-list DATA/image_lists/test.txt \\
       --mesh-dir DATA/models [--device cpu] [--checkpoint DIR] [--pose-graph]
+      [--profile-dir DIR]
 
 ``--config <recipe>`` supplies the recipe's test split, initial poses and
 mesh dir where the flags do not. With ``--num-classes 21`` (the default)
@@ -14,7 +15,9 @@ the YCB-V symmetric classes and mesh diameters apply, whatever the
 meshes, as in the JAX CLI. ``--pose-graph`` also refines every image of 2
 or more objects with the scene pose graph (a shared per-image camera
 correction on flow-derived targets) and prints a second table, with each
-average's change against the plain one.
+average's change against the plain one. ``--profile-dir DIR`` traces
+the three batches after the first with the port's spans on
+(``utils.profiling.trace``) and writes one Chrome trace into DIR.
 
 Several processes split the images (``SCFLOW_NUM_PROCESSES``,
 ``SCFLOW_PROCESS_ID``, ``SCFLOW_COORDINATOR``; see
@@ -70,6 +73,9 @@ def parse_args(argv=None):
     p.add_argument("--limit", type=int, default=None)
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default; raises without a GPU) or 'cpu'")
+    p.add_argument("--profile-dir", default=None,
+                   help="trace the three batches after the first with the "
+                        "port's spans on and write one Chrome trace here")
     return p.parse_args(argv)
 
 
@@ -152,7 +158,8 @@ def main(argv=None) -> tuple[dict, list]:
     write = bool(args.save_dir or args.format_only)
     metrics, results = evaluate_dataset(
         trainer, builder, metric, slot_budget=args.slot_budget,
-        limit=args.limit, collect_results=write, pose_graph_metric=pg_metric)
+        limit=args.limit, collect_results=write, pose_graph_metric=pg_metric,
+        profile_dir=args.profile_dir)
 
     if write and world_size() > 1:
         gathered = [None] * world_size()

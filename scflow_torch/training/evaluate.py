@@ -35,10 +35,13 @@ from ..parallel.collect import (MetricAccumulator, allgather_results,
                                 reduce_metrics)
 from ..parallel.mesh import rank, world_size
 from ..parallel.pose_graph import pose_graph_group, slot_targets
+from ..utils.profiling import trace
 from .points_bank import PointsBank
 from .steps import _to_device
 
 EVAL_KEYS = ("real_images", "ref_rotations", "ref_translations", "k", "labels")
+# the batches ``evaluate_dataset(profile_dir=...)`` traces, after the first
+PROFILED_BATCHES = 3
 
 
 def _pad_slots(arrs: list[np.ndarray], budget: int) -> np.ndarray:
@@ -176,12 +179,30 @@ def _unpack_outputs(small: np.ndarray, had_pnp: bool,
     return out
 
 
+def _profiled(packed: Iterable, profile_dir: str | None, device):
+    """The batches of ``packed``; with ``profile_dir``, the
+    ``PROFILED_BATCHES`` after the first are refined and consumed under
+    ``utils.profiling.trace(profile_dir)`` (spans on), which ends after a
+    device synchronise, so that it holds their kernels."""
+    items = iter(packed)
+    if profile_dir is None:
+        yield from items
+        return
+    yield from itertools.islice(items, 1)
+    with trace(profile_dir):
+        yield from itertools.islice(items, PROFILED_BATCHES)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    yield from items
+
+
 def evaluate_dataset(trainer, builder, metric, *, slot_budget: int = 16,
                      limit: int | None = None, collect_results: bool = False,
                      progress_every: int = 50,
                      progress: Callable = print,
                      pose_graph_metric=None,
-                     pose_graph_camera_only: bool = True) -> tuple[dict, list]:
+                     pose_graph_camera_only: bool = True,
+                     profile_dir: str | None = None) -> tuple[dict, list]:
     """Batched eval over a TestBatchBuilder on the trainer's device.
 
     Packs images into ``slot_budget``-slot batches, refines each with
@@ -198,7 +219,8 @@ def evaluate_dataset(trainer, builder, metric, *, slot_budget: int = 16,
     poses as they are). Under a process group each process evaluates
     images ``rank::world`` and both metrics' records are gathered, so
     every process computes the metrics of all images; ``results`` stay
-    per process."""
+    per process. ``profile_dir``: the three batches after the first are
+    traced into one Chrome trace there (:func:`_profiled`)."""
     total = len(builder) if limit is None else min(limit, len(builder))
     indices = range(rank(), total, world_size())
     results = []
@@ -239,7 +261,8 @@ def evaluate_dataset(trainer, builder, metric, *, slot_budget: int = 16,
     # two-batch lag: the host consumes the oldest batch while the device
     # runs the two after it
     pending: deque = deque()
-    for batch, metas in packed:
+    for batch, metas in _profiled(packed, profile_dir,
+                                  torch.device(trainer.device)):
         out = trainer.predict({k: batch[k] for k in EVAL_KEYS}, keys=keys,
                               sync=False)
         refined = None

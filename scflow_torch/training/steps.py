@@ -45,6 +45,7 @@ from ..models.layers import FusedInstanceNorm
 from ..models.refiner import RAFTRefiner, SCFlowRefiner
 from ..parallel.collect import all_reduce_grads_, reduce_metrics
 from ..rendering.renderer import Renderer
+from ..utils.profiling import span
 from .config import Config, OptimConfig
 from .points_bank import PointsBank
 
@@ -188,42 +189,48 @@ def _eval_step_core(model: SCFlowRefiner | RAFTRefiner, renderer: Renderer,
 
     @torch.inference_mode()
     def eval_step(batch: dict) -> dict:
-        model.eval()        # a train step in between leaves it in train mode
-        batch = {k: _to_device(v, dev) for k, v in batch.items()}
-        real = device_normalize_images(batch["real_images"], norm)
-        labels = batch["labels"].long()
-        rendered, depth, _ = render_at_pose(
-            renderer, batch["ref_rotations"], batch["ref_translations"],
-            batch["k"], labels, *norm)
-        if isinstance(model, RAFTRefiner):
-            flows, masks = model(rendered, real, iters=cfg.model.test_iters)
-            solved = solve_pose_from_flow(
-                torch.Generator(device=dev).manual_seed(0), flows[-1],
-                masks[-1][..., 0], depth, batch["ref_rotations"],
-                batch["ref_translations"], batch["k"])
+        with span("step"):
+            # a train step in between leaves the model in train mode
+            model.eval()
+            with span("inputs"):
+                batch = {k: _to_device(v, dev) for k, v in batch.items()}
+                real = device_normalize_images(batch["real_images"], norm)
+            labels = batch["labels"].long()
+            with span("render"):
+                rendered, depth, _ = render_at_pose(
+                    renderer, batch["ref_rotations"],
+                    batch["ref_translations"], batch["k"], labels, *norm)
+            if isinstance(model, RAFTRefiner):
+                flows, masks = model(rendered, real,
+                                     iters=cfg.model.test_iters)
+                with span("pnp"):
+                    solved = solve_pose_from_flow(
+                        torch.Generator(device=dev).manual_seed(0), flows[-1],
+                        masks[-1][..., 0], depth, batch["ref_rotations"],
+                        batch["ref_translations"], batch["k"])
+                return {
+                    "rotations": solved["rotations"],
+                    "translations": solved["translations"],
+                    "masks": masks[-1],
+                    "flow": flows[-1],
+                    "depth": depth,
+                    "ref_rotations": batch["ref_rotations"],
+                    "ref_translations": batch["ref_translations"],
+                    "pnp_valid": solved["valid"],
+                }
+            outputs = model(rendered, real, batch["ref_rotations"],
+                            batch["ref_translations"], depth, batch["k"],
+                            labels, iters=cfg.model.test_iters,
+                            lowres=cfg.model.lowres_eval)
             return {
-                "rotations": solved["rotations"],
-                "translations": solved["translations"],
-                "masks": masks[-1],
-                "flow": flows[-1],
+                "rotations": outputs.rotations[-1],
+                "translations": outputs.translations[-1],
+                "masks": outputs.masks[-1],
+                "flow": outputs.flow_from_pred[-1],
                 "depth": depth,
                 "ref_rotations": batch["ref_rotations"],
                 "ref_translations": batch["ref_translations"],
-                "pnp_valid": solved["valid"],
             }
-        outputs = model(rendered, real, batch["ref_rotations"],
-                        batch["ref_translations"], depth, batch["k"], labels,
-                        iters=cfg.model.test_iters,
-                        lowres=cfg.model.lowres_eval)
-        return {
-            "rotations": outputs.rotations[-1],
-            "translations": outputs.translations[-1],
-            "masks": outputs.masks[-1],
-            "flow": outputs.flow_from_pred[-1],
-            "depth": depth,
-            "ref_rotations": batch["ref_rotations"],
-            "ref_translations": batch["ref_translations"],
-        }
 
     return eval_step
 
@@ -462,31 +469,33 @@ def _train_cycle(model, renderer, points_bank, cfg, optimizer, batch, norm):
     """Render at the batch's reference pose, take the loss, its gradient
     and one clipped AdamW update: (metrics incl. grad_norm, outputs).
     ``norm``: the step's :func:`normalization` constants."""
-    with torch.no_grad():
+    with torch.no_grad(), span("render"):
         rendered, depth, mask = render_at_pose(
             renderer, batch["ref_rotations"], batch["ref_translations"],
             batch["k"], batch["labels"].long(), *norm)
+    with span("inputs"):
+        real = device_normalize_images(batch["real_images"], norm)
     full = dict(batch, rendered_images=rendered, rendered_depths=depth,
-                rendered_masks=mask,
-                real_images=device_normalize_images(batch["real_images"],
-                                                    norm))
+                rendered_masks=mask, real_images=real)
     loss_fn = raft_loss if isinstance(model, RAFTRefiner) else scflow_loss
     loss, metrics, outputs = loss_fn(model, full, points_bank, cfg,
                                      train=True)
     optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    grads = [p.grad for g in optimizer.param_groups for p in g["params"]
-             if p.grad is not None]
-    # data-parallel: sum the processes' gradients before the clip, so each
-    # clips by the global norm and takes the same update
-    all_reduce_grads_(grads)
-    metrics = reduce_metrics({k: v.detach() for k, v in metrics.items()})
-    metrics["grad_norm"] = clip_by_global_norm_(grads,
-                                                cfg.optim.grad_clip_norm)
-    lr = onecycle_lr(_updates_done(optimizer), cfg.optim)
-    for group in optimizer.param_groups:
-        group["lr"] = lr
-    optimizer.step()
+    with span("backward"):
+        loss.backward()
+    with span("optimizer"):
+        grads = [p.grad for g in optimizer.param_groups for p in g["params"]
+                 if p.grad is not None]
+        # data-parallel: sum the processes' gradients before the clip, so
+        # each clips by the global norm and takes the same update
+        all_reduce_grads_(grads)
+        metrics = reduce_metrics({k: v.detach() for k, v in metrics.items()})
+        metrics["grad_norm"] = clip_by_global_norm_(grads,
+                                                    cfg.optim.grad_clip_norm)
+        lr = onecycle_lr(_updates_done(optimizer), cfg.optim)
+        for group in optimizer.param_groups:
+            group["lr"] = lr
+        optimizer.step()
     return metrics, outputs
 
 
@@ -512,10 +521,12 @@ def make_train_step(model: SCFlowRefiner | RAFTRefiner, renderer: Renderer,
                                                     points_bank, cfg, device)
 
     def train_step(batch: dict) -> dict:
-        batch = {k: _to_device(v, dev) for k, v in batch.items()}
-        metrics, _ = _train_cycle(model, renderer, points_bank, cfg,
-                                  optimizer, batch, norm)
-        return metrics
+        with span("step"):
+            with span("inputs"):
+                batch = {k: _to_device(v, dev) for k, v in batch.items()}
+            metrics, _ = _train_cycle(model, renderer, points_bank, cfg,
+                                      optimizer, batch, norm)
+            return metrics
 
     return train_step
 
@@ -536,16 +547,18 @@ def make_multi_cycle_train_step(model: SCFlowRefiner, renderer: Renderer,
                                                     points_bank, cfg, device)
 
     def train_step(batch: dict) -> dict:
-        batch = {k: _to_device(v, dev) for k, v in batch.items()}
-        merged = {}
-        for i in range(cycles):
-            metrics, outputs = _train_cycle(model, renderer, points_bank, cfg,
-                                            optimizer, batch, norm)
-            merged[f"cycle{i}_loss"] = metrics["loss"]
-            batch = dict(batch,
-                         ref_rotations=outputs.rotations[-1].detach(),
-                         ref_translations=outputs.translations[-1].detach())
-        merged.update(metrics)
-        return merged
+        with span("step"):
+            with span("inputs"):
+                batch = {k: _to_device(v, dev) for k, v in batch.items()}
+            merged = {}
+            for i in range(cycles):
+                metrics, outputs = _train_cycle(model, renderer, points_bank,
+                                                cfg, optimizer, batch, norm)
+                merged[f"cycle{i}_loss"] = metrics["loss"]
+                batch = dict(
+                    batch, ref_rotations=outputs.rotations[-1].detach(),
+                    ref_translations=outputs.translations[-1].detach())
+            merged.update(metrics)
+            return merged
 
     return train_step

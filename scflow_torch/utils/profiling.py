@@ -1,12 +1,17 @@
 """Profiling helpers (port of ``scflow_tpu/utils/profiling.py``):
-torch.profiler traces, per-phase wall timing, the card's peaks, checked
-traces of the hand-written kernels and the work a block of ops does.
+named spans on the hot path, torch.profiler traces, the card's peaks,
+checked traces of the hand-written kernels and the work a block of ops
+does.
 
-``PhaseTimer`` times phases of the hot path (render / encode / GRU loop /
-loss) on the host clock, synchronising the GPU at each phase's end so the
-phase's queued kernels are counted; ``trace`` records a torch.profiler
-trace and writes it as a Chrome trace (chrome://tracing, Perfetto,
-TensorBoard's profile plugin).
+``span(name)`` marks a part of the step (see README's list of spans).
+Spans are off by default: ``span`` then returns one shared no-op context,
+which dispatches no op, allocates nothing and records nothing, so the
+step runs exactly as unmarked. ``enable_spans(flag)`` or the block form
+``spans_enabled()`` turns them on; each span is then a
+``torch.profiler.record_function`` range named ``SPAN_PREFIX + name``, on
+the profiler's own clock, beside the kernels it launches. ``trace``
+records a torch.profiler trace with spans on and writes it as a Chrome
+trace (chrome://tracing, Perfetto, TensorBoard's profile plugin).
 
 ``checked_trace`` takes a trace again until it holds every K1 and K2
 kernel the wrappers launched in it (traces have been seen to lose
@@ -23,7 +28,6 @@ import contextlib
 import os
 import re
 import time
-from collections import defaultdict
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -70,58 +74,67 @@ def tf32(enabled: bool):
          torch.backends.cudnn.allow_tf32) = flags
 
 
+# the prefix of a span's range (distinct from the ranges the benchmark
+# and ``tools/profile_trace.py`` open)
+SPAN_PREFIX = "scflow.span:"
+
+
+class _NoSpan:
+    """The context ``span`` returns while spans are off: it does nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NO_SPAN = _NoSpan()
+_spans_on = False
+
+
+def span(name: str):
+    """A context marking part of the step: while spans are off, the one
+    shared no-op context; while on, a ``record_function`` range named
+    ``SPAN_PREFIX + name``."""
+    if not _spans_on:
+        return _NO_SPAN
+    return torch.profiler.record_function(SPAN_PREFIX + name)
+
+
+def enable_spans(flag: bool) -> bool:
+    """Turn the process's spans on or off; returns whether they were on."""
+    global _spans_on
+    was, _spans_on = _spans_on, bool(flag)
+    return was
+
+
+@contextlib.contextmanager
+def spans_enabled(flag: bool = True):
+    """Spans on (or off) inside the block, as they were after it."""
+    was = enable_spans(flag)
+    try:
+        yield
+    finally:
+        enable_spans(was)
+
+
 @contextlib.contextmanager
 def trace(log_dir: str):
-    """Profile the block (CPU, and CUDA when a GPU is present) and write
-    ``log_dir/trace_<pid>_<ns>.json``; yields the profiler."""
+    """Profile the block (CPU, and CUDA when a GPU is present) with spans
+    on and write ``log_dir/trace_<pid>_<ns>.json``; yields the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
+    with profile(activities=activities) as prof, spans_enabled():
         yield prof
     os.makedirs(log_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(
         log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
-
-
-class PhaseTimer:
-    """Accumulating per-phase wall timer with device synchronisation.
-
-    Usage::
-        timer = PhaseTimer()
-        with timer("render"):
-            out = renderer(...)   # the GPU is synchronised on exit
-        print(timer.summary())
-
-    The JAX timer blocks on a registered output; CUDA has no per-tensor
-    wait, so this one synchronises the whole device when CUDA has been
-    initialised (on the CPU there is nothing to wait for).
-    """
-
-    def __init__(self):
-        self.totals: dict[str, float] = defaultdict(float)
-        self.counts: dict[str, int] = defaultdict(int)
-
-    @contextlib.contextmanager
-    def __call__(self, phase: str):
-        t0 = time.perf_counter()
-        try:
-            yield self
-        finally:
-            if torch.cuda.is_initialized():
-                torch.cuda.synchronize()
-            self.totals[phase] += time.perf_counter() - t0
-            self.counts[phase] += 1
-
-    def summary(self) -> dict[str, float]:
-        """Mean milliseconds per phase."""
-        return {k: 1000.0 * self.totals[k] / max(self.counts[k], 1)
-                for k in self.totals}
-
-    def report(self) -> str:
-        return " | ".join(f"{k}: {v:.2f}ms" for k, v in self.summary().items())
 
 
 # the profiler's own bookkeeping events on the device (not kernels)

@@ -3,7 +3,7 @@ package, on the CPU, on seeded numpy inputs: ``endpoint_error``,
 ``add_error`` / ``adds_error``, ``MetricAccumulator``, ``flow_to_rgb``,
 ``make_train_panel``, ``sequence_epe_report``, the TensorBoard event
 writer (its bytes) and the port's own PNG encoder (decoded with PIL),
-``PhaseTimer`` and ``trace``."""
+``span`` and ``trace``."""
 import io
 import json
 import struct
@@ -261,18 +261,24 @@ def test_png_encoder_decodes_to_its_pixels(shape, tmp_path):
 
 
 def test_phase_timer_and_trace(tmp_path):
-    """PhaseTimer accumulates per-phase means; trace writes a Chrome trace
-    holding the block's ops."""
-    from scflow_torch.utils.profiling import PhaseTimer, trace
+    """The timer of phases is gone for ``span``: off, one shared no-op;
+    ``trace`` turns spans on inside its block and writes a Chrome trace
+    holding the block's ops inside its spans."""
+    from scflow_torch.utils import profiling
+    from scflow_torch.utils.profiling import SPAN_PREFIX, span, trace
 
-    timer = PhaseTimer()
-    for _ in range(2):
-        with timer("matmul"):
-            torch.ones(32, 32) @ torch.ones(32, 32)
-    assert timer.counts["matmul"] == 2 and timer.summary()["matmul"] > 0
-    assert timer.report().startswith("matmul: ")
+    assert not hasattr(profiling, "PhaseTimer")
+    assert span("matmul") is span("sum")
     with trace(str(tmp_path)):
-        torch.ones(8, 8).sum()
+        with span("matmul"):
+            torch.ones(32, 32) @ torch.ones(32, 32)
+        with span("sum"):
+            torch.ones(8, 8).sum()
+    assert span("matmul") is span("sum")
     (path,) = tmp_path.glob("trace_*.json")
     events = json.loads(path.read_text())["traceEvents"]
-    assert any("aten::sum" in e.get("name", "") for e in events)
+    names = {e.get("name", ""): e for e in events}
+    assert any("aten::sum" in n for n in names)
+    s, op = names[SPAN_PREFIX + "sum"], names["aten::sum"]
+    assert s["ts"] <= op["ts"] and op["ts"] + op["dur"] <= s["ts"] + s["dur"]
+    assert SPAN_PREFIX + "matmul" in names
